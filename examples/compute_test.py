@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from pupiloptixlab_tpu.passes import ComputePass
 from pupiloptixlab_tpu.system import System
+from pupiloptixlab_tpu.utils.compile_cache import enable_compile_cache
 
 W = H = 256
 
@@ -35,6 +36,7 @@ def animate(frame, w, h):
 
 
 def main() -> None:
+    enable_compile_cache()
     system = System(has_display=True)
     system.add_pass(
         ComputePass(lambda f, w, h: animate(jnp.int32(f), w, h), W, H)

@@ -8,11 +8,15 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from pupiloptixlab_tpu.system import System
+from pupiloptixlab_tpu.utils.compile_cache import enable_compile_cache
+
+SCENE = Path(__file__).resolve().parent.parent / "data" / "mesh_env.xml"
 
 
 def main() -> None:
+    enable_compile_cache()
     system = System(has_display=True)
-    system.set_scene("/root/reference/data/static/cornellbox.xml")
+    system.set_scene(SCENE)
     system.run(max_frames=3)
     system.destroy()
     print("shell ran 3 empty frames")

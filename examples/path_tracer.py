@@ -4,6 +4,7 @@ The example/path_tracer analog: boot the System, add a PTPass, load a
 scene, render, save the result. Run:
 
     python examples/path_tracer.py [scene.xml] [--spp N] [--out out.exr]
+                                   (default scene: data/mesh_env.xml)
     python examples/path_tracer.py --interactive   # live window if available
     python examples/path_tracer.py --web [--port 8090]  # browser GUI
 """
@@ -18,8 +19,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from pupiloptixlab_tpu.passes import PTPass
 from pupiloptixlab_tpu.system import System
+from pupiloptixlab_tpu.utils.compile_cache import enable_compile_cache
 
-DEFAULT_SCENE = "/root/reference/data/static/cornellbox.xml"
+DEFAULT_SCENE = str(Path(__file__).resolve().parent.parent / "data" / "mesh_env.xml")
 
 
 def main() -> None:
@@ -36,6 +38,7 @@ def main() -> None:
                     help="serve the interactive GUI over HTTP (remote hosts)")
     ap.add_argument("--port", type=int, default=8090)
     args = ap.parse_args()
+    enable_compile_cache()
 
     system = System(display="web" if args.web else "window")
     system.add_pass(PTPass(max_depth=args.max_depth, spectral=args.spectral or None))

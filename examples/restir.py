@@ -1,7 +1,8 @@
-"""ReSTIR example (DI, or GI with --gi) over the reference's restir_test.xml many-light
-scene (the reference ships the scene but no pass; see render/restir.py).
+"""ReSTIR example (DI, or GI with --gi) over a many-light scene (the
+reference's restir_test.xml class; see render/restir.py). The repository
+ships no such scene yet, so the scene argument is required.
 
-    python examples/restir.py [scene.xml] [--frames N] [--out out.exr]
+    python examples/restir.py scene.xml [--frames N] [--out out.exr]
     python examples/restir.py --web [--port 8090]   # browser GUI
 """
 
@@ -16,12 +17,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from pupiloptixlab_tpu.passes import ReSTIRPass
 from pupiloptixlab_tpu.system import System
 
-DEFAULT_SCENE = "/root/reference/data/static/restir_test.xml"
+from pupiloptixlab_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("scene", nargs="?", default=DEFAULT_SCENE)
+    ap.add_argument("scene")
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--out", default="restir_out.exr")
     ap.add_argument("--candidates", type=int, default=8)
@@ -31,6 +32,7 @@ def main() -> None:
     ap.add_argument("--web", action="store_true")
     ap.add_argument("--port", type=int, default=8090)
     args = ap.parse_args()
+    enable_compile_cache()
 
     system = System(display="web" if args.web else "window")
     system.add_pass(

@@ -21,11 +21,12 @@ import numpy as np
 
 from pupiloptixlab_tpu.flatten import flatten_scene
 from pupiloptixlab_tpu.scene import load_scene
+from pupiloptixlab_tpu.utils.compile_cache import enable_compile_cache
 from pupiloptixlab_tpu.utils.image import save_image
 from pupiloptixlab_tpu.wavefront import render_wavefront
 from pupiloptixlab_tpu.world import World
 
-DEFAULT_SCENE = "/root/reference/data/static/cornellbox.xml"
+DEFAULT_SCENE = str(Path(__file__).resolve().parent.parent / "data" / "mesh_env.xml")
 
 
 def main() -> None:
@@ -37,6 +38,7 @@ def main() -> None:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--out", default="wavefront_out.exr")
     args = ap.parse_args()
+    enable_compile_cache()
 
     world = World()
     scene = load_scene(args.scene)

@@ -2,7 +2,7 @@
 //
 // The reference's host runtime is C++ (scene load via assimp,
 // resource/shape.cpp:219-278; GAS builds in world/gas_manager.cpp).
-// The TPU build keeps the COMPUTE path in JAX/Pallas and moves the two
+// The framework keeps the COMPUTE path on the device and moves the two
 // heaviest host-side steps here, behind ctypes (pupiloptixlab_tpu/
 // native.py) with a numpy fallback:
 //

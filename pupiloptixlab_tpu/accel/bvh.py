@@ -1,31 +1,25 @@
 """Host-side wide-BVH builder over the flattened triangle soup.
 
 The GAS-build analog (reference: world/gas_manager.cpp:61-185 builds
-compacted BLASes that optixTrace walks per ray). On TPU the traversal
-kernel (accel/pallas_bvh.py) walks the tree per RAY TILE, and the tree
-is 8-WIDE so every visit tests all 8 children in one VPU-shaped
-(8, rays) slab test with a single vector->scalar sync — a binary tree
-pays that sync per node and loses to the flat sweep (measured 1.8 vs
-3.4 Mray/s on the 20k-tri scene); the wide tree amortizes it 8x.
+compacted BLASes that optixTrace walks per ray). The traversal
+(accel/traverse.py: the CUDA kernel on the GPU, the plain-JAX walk
+elsewhere) walks the tree per RAY on a short stack, testing all 8
+children of a node in one step.
 
 Builder design:
 
-* top-down median split over triangle centroids along the widest axis
-  of each range's centroid bounds; three split levels are collapsed
-  into one 8-ary node (the CWBVH construction, TPU-sized);
+* top-down binned-SAH split over triangle centroids; three split levels
+  are collapsed into one 8-ary node (the CWBVH construction);
 * triangles are REORDERED so every leaf is one contiguous, TCL-aligned
-  row range of the packed table (the kernel fetches a leaf with a
-  single dynamic ``pl.ds`` slice);
+  row range of the packed table (a leaf is rows ``[start, start+tcl)``);
 * per node: 8 child boxes as an (8, 8)-row block of a flat f32 array
-  (VMEM in the kernel; the block read ``box[node*8 : node*8+8]`` is
-  sublane-aligned), 8 child ids (SMEM scalars), and the dominant split
-  axis. Children are sorted ascending along that axis so the kernel
-  can push far-to-near from the ray tile's direction sign.
+  (``box[node*8 : node*8+8]``), 8 child ids, and the dominant split
+  axis. Children are sorted ascending along that axis.
 
 Child-id encoding: ``id >= 0`` is an internal node; ``id < 0`` is a
 leaf whose triangle rows start at ``-(id + 1)`` (a multiple of TCL).
-Empty slots carry an inverted never-hit box, so traversal never visits
-them. Node 0 is the root.
+Empty slots carry a never-hit box, so traversal never visits them.
+Node 0 is the root.
 """
 
 from __future__ import annotations
@@ -35,12 +29,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-# SMEM holds the child-id and axis tables (measured limit ~256 KB on
-# v5e): 8-ary nodes need 9 int32 per node, so even a 500k-tri scene
-# (~4.5k nodes at TCL=16) uses ~160 KB of VMEM boxes and ~160 KB SMEM.
-_SMEM_BUDGET_BYTES = 160 * 1024
-_NODE_SMEM_BYTES = 9 * 4  # 8 child ids + axis
-_MAX_NODES = _SMEM_BUDGET_BYTES // _NODE_SMEM_BYTES
+# Triangles per leaf of flat scenes, chosen from end-to-end 1080p frame
+# times of the CUDA traversal on an H100 (leaf 4 < 8 < 16 on both the
+# 20k- and the 405k-triangle scene; CHANGES.md).
+LEAF_SIZE = 4
 
 
 @dataclass
@@ -51,29 +43,6 @@ class BvhArrays:
     boxes: np.ndarray   # (M*8, 8) f32 [lox loy loz hix hiy hiz 0 0]
     tcl: int            # leaf size (tri rows per leaf)
     n_nodes: int
-
-
-def pick_leaf_size(t_pad: int, min_tcl: int = 16) -> int:
-    """Smallest leaf size (>= min_tcl, multiple of 8) whose 8-ary node
-    count fits the SMEM budget (internal nodes ~= n_leaves / 7).
-
-    min_tcl = 16 is the round-3 frame-time optimum on the 20k-tri
-    mesh_env scene (556/534/577 ms at tcl 8/16/32). Round 2's
-    1-leaf-per-iteration loop favored 32 (693 vs 711 ms) because every
-    leaf paid a sync; the nested leaf-drain loop moved that cost to node
-    pops, so the smaller leaves' ~25% lower tested-triangle volume now
-    wins. PUPIL_TCL overrides for sweeps (debug knob)."""
-    import os
-
-    env = os.environ.get("PUPIL_TCL")
-    if env:
-        min_tcl = int(env)
-    tcl = min_tcl
-    while True:
-        n_leaves = max((t_pad + tcl - 1) // tcl, 1)
-        if n_leaves // 7 + 8 <= _MAX_NODES:
-            return tcl
-        tcl *= 2
 
 
 # "Never hit" box for empty child slots and all-padding leaves: a POINT
@@ -110,7 +79,7 @@ def build_bvh(
 
         native = build_bvh8_native(p0, p1, p2, valid_count, tcl)
         if native is not None:
-            return native
+            return _check_stack(native)
 
     t_pad = p0.shape[0]
     assert t_pad % tcl == 0 and t_pad > tcl
@@ -256,26 +225,38 @@ def build_bvh(
         sys.setrecursionlimit(old_limit)
 
     m = len(child)
-    return BvhArrays(
+    return _check_stack(BvhArrays(
         order=order,
         child=np.asarray(child, np.int32).reshape(-1),
         axis=np.asarray(axis_l, np.int32),
         boxes=np.concatenate(boxes_l, axis=0),
         tcl=tcl,
         n_nodes=m,
-    )
+    ))
 
 
 def max_stack_depth(child: np.ndarray) -> int:
-    """Worst-case traversal stack bound: up to 8 pushes per level of the
-    8-ary tree (pop one, push its live children)."""
+    """Most entries a nearest-first walk can hold on its stack: a node
+    popped with ``base`` entries below it pushes its live children, and
+    each internal child is later popped with its farther siblings still
+    below it."""
     ids = child.reshape(-1, 8)
-    depth = np.zeros(ids.shape[0], np.int32)
-    peak = 8
-    for i in range(ids.shape[0]):
-        for cid in ids[i]:
-            if cid > 0:
-                depth[cid] = depth[i] + 1
-                # pop one, push <= 8 -> <= 7 net per level plus the burst
-                peak = max(peak, 7 * (int(depth[i]) + 1) + 8)
+    live = (ids != 0).sum(axis=1)
+    base = np.zeros(ids.shape[0], np.int64)
+    peak = 1
+    for i in range(ids.shape[0]):  # parents precede their children
+        peak = max(peak, int(base[i] + live[i]))
+        kids = ids[i][ids[i] > 0]
+        base[kids] = base[i] + live[i] - 1
     return peak
+
+
+def _check_stack(bvh: BvhArrays) -> BvhArrays:
+    from pupiloptixlab_tpu.accel.traverse import STACK_SIZE
+
+    need = max_stack_depth(bvh.child)
+    if need > STACK_SIZE:
+        raise ValueError(
+            f"BVH needs a {need}-entry traversal stack (> {STACK_SIZE})"
+        )
+    return bvh

@@ -1,260 +1,36 @@
-"""Fast row gathers + searchsorted for small/medium tables.
+"""Row gathers + searchsorted for the scene tables.
 
-XLA's native TPU gather fetches rows element-by-element (~3-100 ms per
-(2M,) lookup depending on table size); a scene render does dozens per
-bounce. For the dense tables this framework uses (triangle attributes,
-materials, textures, emitters, env CDFs, texture pixel pools), a gather
-is better expressed as a one-hot matmul on the MXU: the Pallas kernel
-builds the one-hot mask tile-by-tile in VMEM (so the (N, T) mask never
-touches HBM) and contracts it against the table, walking the table in
-2048-row windows for tables up to 64k rows.
+Every per-ray table lookup (triangle attributes, materials, textures,
+emitters, env CDFs, texture pixel pools) goes through these helpers so
+that indexing conventions live in one place:
 
-``gather_cols`` returns the transposed (C, N) layout: each attribute is a
-dense (N,) plane (full lane utilization — see render/vec.py).
-``count_less`` is the batched searchsorted-left replacement (env-map CDF
-inversion): counts table entries strictly below each query.
+* ``gather_cols`` returns the transposed (C, N) layout: each attribute
+  is a dense (N,) plane (see render/vec.py);
+* ``gather_rows`` returns the row-major (N, C) rows;
+* ``count_less`` is the batched searchsorted-left (env-map and emitter
+  CDF inversion): the number of table entries strictly below each query.
 
-Out-of-range indices clamp to row 0 (callers mask invalid lanes).
+Out-of-range indices clamp into the table (callers mask invalid lanes).
+The lookups are native gathers: no matrix product is involved, so
+values (including integer ids packed as floats) reproduce exactly.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .mosaic_params import ray_grid_params
-
-_BLOCK = 4096
-_WINDOW = 2048           # table rows per in-kernel window
-# The one-hot matmul is O(N * T * C): unbeatable for the small dense
-# tables (materials, textures, emitters, tri attrs at cornell scale)
-# where XLA's native gather pays ~ms of fixed cost, but it loses to the
-# native gather once the table grows — at T rows, C cols, N=2M lanes the
-# MXU does 2*N*T*C flops (x6 for the exactness-preserving HIGHEST
-# precision), crossing the native gather's cost around T ~ 2k rows.
-# Large-mesh attribute tables (20k+ rows) therefore take the native path.
-_MAX_PALLAS_ROWS = 2048
-_MAX_PALLAS_COLS = 512
-
-
-def _make_gather_kernel(t_pad: int):
-    n_windows = t_pad // _WINDOW if t_pad > _WINDOW else 1
-    window = _WINDOW if t_pad > _WINDOW else t_pad
-
-    # Both operands stay f32 and the contraction runs at Precision.HIGHEST:
-    # the default-precision path multiplies in bf16, quantizing every
-    # fetched value to ~8 mantissa bits (integer ids packed as floats
-    # decode wrong above 256 — e.g. 301 -> 300). HIGHEST is measured
-    # bit-exact on TPU v5e for one-hot selection (max err 0.0 on random
-    # f32 tables incl. ids up to 3e5), so table rows reproduce exactly.
-    def matmul_exact(table, one_hot):
-        return jax.lax.dot_general(
-            table, one_hot, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )
-
-    def kernel(idx_ref, table_t_ref, out_ref):
-        idx = idx_ref[:]  # (1, B) i32
-        if n_windows == 1:
-            rows = jax.lax.broadcasted_iota(jnp.int32, (window, idx.shape[1]), 0)
-            one_hot = (rows == idx).astype(jnp.float32)
-            out_ref[:] = matmul_exact(table_t_ref[:], one_hot)
-            return
-
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-        def body(wi, _):
-            base = wi * window
-            rows = jax.lax.broadcasted_iota(jnp.int32, (window, idx.shape[1]), 0)
-            one_hot = (rows == (idx - base)).astype(jnp.float32)
-            chunk = table_t_ref[:, pl.ds(base, window)]
-            out_ref[:] += matmul_exact(chunk, one_hot)
-            return _
-
-        jax.lax.fori_loop(0, n_windows, body, None)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _gather_cols_pallas(table_t: jnp.ndarray, idx: jnp.ndarray, interpret: bool = False):
-    n = idx.shape[0]
-    c, t = table_t.shape
-    t_pad = t if t <= _WINDOW else ((t + _WINDOW - 1) // _WINDOW) * _WINDOW
-    if t_pad != t:
-        table_t = jnp.concatenate(
-            [table_t, jnp.zeros((c, t_pad - t), table_t.dtype)], axis=1
-        )
-    pad = (-n) % _BLOCK
-    if pad:
-        idx = jnp.concatenate([idx, jnp.zeros(pad, idx.dtype)], 0)
-    idx2 = jnp.clip(idx, 0, t - 1).astype(jnp.int32)[None, :]
-    out = pl.pallas_call(
-        _make_gather_kernel(t_pad),
-        grid=((n + pad) // _BLOCK,),
-        in_specs=[
-            pl.BlockSpec((1, _BLOCK), lambda r: (0, r), memory_space=pltpu.VMEM),
-            pl.BlockSpec((c, t_pad), lambda r: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((c, _BLOCK), lambda r: (0, r), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((c, n + pad), jnp.float32),
-        interpret=interpret,
-        compiler_params=ray_grid_params(),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * (n + pad) * t_pad * c,
-            bytes_accessed=(n + pad) * (4 + 4 * c) + t_pad * c * 4,
-            transcendentals=0,
-        ),
-    )(idx2, table_t)
-    return out[:, :n]
 
 
 def gather_cols(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """table (T, C) f32, idx (N,) int -> (C, N) f32 = table[idx].T.
-
-    The one-hot contraction keeps both operands f32, so values reproduce
-    bit-for-bit (integer ids packed as floats survive; see kernel note).
-
-    Large tables take the native row gather, but NOT a native transpose:
-    when the (N, C) gather result is consumed plane-wise inside a jit,
-    XLA's layout assignment materializes it physically transposed, which
-    costs ~17 ms per 2M-lane 24-col gather (vs ~5 ms for the gather
-    itself — measured on mesh_env tri attrs). Feeding the row-major
-    gather into a Pallas transpose kernel instead pins the intermediate
-    to the default layout (pallas operands demand it) and does the
-    relayout once in VMEM: 22 -> ~10 ms end-to-end for gather+interp.
-    """
-    t, c = table.shape
-    on_tpu = jax.default_backend() == "tpu"
-    if not on_tpu or t > _MAX_PALLAS_ROWS or c > _MAX_PALLAS_COLS:
-        rows = table[jnp.clip(idx, 0, t - 1)]
-        if (not on_tpu or c > 128 or idx.ndim != 1
-                or idx.shape[0] < _TR_BLOCK or _NO_PALLAS_TRANSPOSE):
-            return rows.T
-        return _transpose_cols_pallas(rows)
-    return _gather_cols_pallas(table.T, idx)
-
-
-_TR_BLOCK = 1024  # sweep on v5e: 4.4 ms at 1024, 4.7 at 512, 9.4 at 2048
-                  # for a (2M, 24) f32 relayout; >=4096 hangs the Mosaic
-                  # compile (giant unrolled relayout)
-import os as _os
-
-# debug/A-B knob: force the plain XLA transpose in the big-table fallback
-_NO_PALLAS_TRANSPOSE = bool(_os.environ.get("PUPIL_NO_PALLAS_TRANSPOSE"))
-
-
-def _transpose_kernel(x_ref, o_ref):
-    o_ref[:] = x_ref[:].T
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _transpose_cols_pallas(x: jnp.ndarray, interpret: bool = False):
-    """(N, C) -> (C, N) relayout, C <= 128, one VMEM transpose per block."""
-    n, c = x.shape
-    pad = (-n) % _TR_BLOCK
-    if pad:
-        x = jnp.concatenate([x, jnp.zeros((pad, c), x.dtype)], 0)
-    out = pl.pallas_call(
-        _transpose_kernel,
-        grid=((n + pad) // _TR_BLOCK,),
-        in_specs=[
-            pl.BlockSpec((_TR_BLOCK, c), lambda r: (r, 0), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec((c, _TR_BLOCK), lambda r: (0, r), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((c, n + pad), x.dtype),
-        interpret=interpret,
-        compiler_params=ray_grid_params(),
-    )(x)
-    return out[:, :n]
+    """table (T, C) f32, idx (N,) int -> (C, N) f32 = table[idx].T."""
+    return gather_rows(table, idx).T
 
 
 def gather_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """table (T, C) f32, idx (N,) int -> (N, C) f32 = table[idx]."""
-    t, c = table.shape
-    on_tpu = jax.default_backend() == "tpu"
-    if not on_tpu or t > _MAX_PALLAS_ROWS or c > _MAX_PALLAS_COLS:
-        return table[jnp.clip(idx, 0, t - 1)]
-    return _gather_cols_pallas(table.T, idx).T
-
-
-# ---------------------------------------------------------------------------
-# batched searchsorted-left over a shared sorted table
-# ---------------------------------------------------------------------------
-
-_COUNT_BLOCK = 2048
-_COUNT_WINDOW = 512
-
-
-def _make_count_kernel(t_pad: int):
-    n_windows = max(t_pad // _COUNT_WINDOW, 1)
-    window = min(t_pad, _COUNT_WINDOW)
-
-    def kernel(q_ref, table_ref, out_ref):
-        q = q_ref[0, :]  # (B,)
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-        def body(wi, _):
-            chunk = table_ref[0, pl.ds(wi * window, window)]  # (window,)
-            counts = jnp.sum(
-                (chunk[:, None] < q[None, :]).astype(jnp.int32), axis=0
-            )  # (B,)
-            out_ref[:] += counts[None, :]
-            return _
-
-        jax.lax.fori_loop(0, n_windows, body, None)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _count_less_pallas(table: jnp.ndarray, q: jnp.ndarray, interpret: bool = False):
-    n = q.shape[0]
-    t = table.shape[0]
-    t_pad = (
-        t if t <= _COUNT_WINDOW
-        else ((t + _COUNT_WINDOW - 1) // _COUNT_WINDOW) * _COUNT_WINDOW
-    )
-    if t_pad != t:
-        big = jnp.full(t_pad - t, jnp.finfo(table.dtype).max, table.dtype)
-        table = jnp.concatenate([table, big], 0)
-    pad = (-n) % _COUNT_BLOCK
-    if pad:
-        q = jnp.concatenate([q, jnp.zeros(pad, q.dtype)], 0)
-    out = pl.pallas_call(
-        _make_count_kernel(t_pad),
-        grid=((n + pad) // _COUNT_BLOCK,),
-        in_specs=[
-            pl.BlockSpec((1, _COUNT_BLOCK), lambda r: (0, r), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, t_pad), lambda r: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, _COUNT_BLOCK), lambda r: (0, r), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((1, n + pad), jnp.int32),
-        interpret=interpret,
-        compiler_params=ray_grid_params(),
-    )(q[None, :], table[None, :])
-    return out[0, :n]
-
-
-_MAX_COUNT_ROWS = 1024  # linear count is O(N*T): 8k rows = 261 ms at 2M
+    return table[jnp.clip(idx, 0, table.shape[0] - 1)]
 
 
 def count_less(table: jnp.ndarray, queries: jnp.ndarray) -> jnp.ndarray:
     """Number of ``table`` entries strictly below each query — equal to
-    jnp.searchsorted(table, queries, side='left') for sorted tables.
-
-    The Pallas linear count wins only for SMALL tables (emitter CDFs);
-    big sorted tables (env joint CDFs) take XLA's native binary-search
-    searchsorted (O(N log T); measured 261 ms -> ~40 ms at 8k rows, 2M
-    queries)."""
-    on_tpu = jax.default_backend() == "tpu"
-    if not on_tpu or table.shape[0] > _MAX_COUNT_ROWS:
-        return jnp.searchsorted(table, queries, side="left").astype(jnp.int32)
-    return _count_less_pallas(table, queries)
+    jnp.searchsorted(table, queries, side='left') for sorted tables."""
+    return jnp.searchsorted(table, queries, side="left").astype(jnp.int32)

@@ -1,16 +1,16 @@
 """Ray/scene intersection — the OptiX accel-build/traverse replacement.
 
 The reference offloads traversal to RT cores via GAS/IAS handles
-(world/gas_manager.cpp, world/ias_manager.cpp) and `optixTrace`. On TPU,
-intersection is a data-parallel sweep: every ray tests triangle chunks
-(Moller-Trumbore) and the analytic unit-sphere primitives in their
-instance frames (supporting ellipsoids, like OptiX sphere primitives
-under instance transforms).
+(world/gas_manager.cpp, world/ias_manager.cpp) and `optixTrace`. Here
+triangle scenes walk the 8-wide BVH per ray (accel/traverse.py: a CUDA
+kernel on the GPU, a plain-JAX walk on other backends). The chunked
+brute-force sweep (Moller-Trumbore against every triangle) is the
+traversal's test reference and the PUPIL_NO_BVH debug route. The
+analytic unit-sphere primitives are tested in their instance frames
+(supporting ellipsoids, like OptiX sphere primitives under instance
+transforms).
 
 Rays are Vec3 planes (render/vec.py) end to end — no (N, 3) relayouts.
-On TPU the triangle sweep runs as a Pallas kernel
-(accel/pallas_intersect.py) holding every intermediate in VMEM; on CPU a
-chunked lax.scan sweep serves as the correctness oracle.
 """
 
 from __future__ import annotations
@@ -20,37 +20,12 @@ from dataclasses import dataclass, fields
 import jax
 import jax.numpy as jnp
 
+from pupiloptixlab_tpu.accel.traverse import traversal_route, traverse
 from pupiloptixlab_tpu.flatten.types import RenderConfig, SceneData
 from pupiloptixlab_tpu.render.sampling import MAX_DISTANCE
 from pupiloptixlab_tpu.render.vec import Vec3
 
 _DET_EPS = 1e-12
-
-# Ray-tile height for the Pallas sweeps (rb x 128 rays per tile),
-# chosen per traversal path from A/B measurements (tools/tpu_suite.py,
-# 1080p 1spp, real TPU):
-#   resident BVH (mesh_env):  rb8 430 ms, rb16 386 ms  -> 16
-#   chunk sweep  (cornell):   rb8 205,    rb16 225 Mray/s -> 16
-#   streamed BVH (big_env):   rb8 1403 ms, rb16 1580 ms -> 8
-# Wider tiles halve the per-ray vector->scalar sync count, which wins
-# while the table is VMEM-resident; streamed scenes are DMA-bound and
-# pay the larger per-tile leaf unions instead. PUPIL_RB overrides both.
-import os as _os
-
-_RB_ENV = _os.environ.get("PUPIL_RB")
-RB_RESIDENT = int(_RB_ENV) if _RB_ENV else 16
-RB_STREAMED = int(_RB_ENV) if _RB_ENV else 8
-# A/B knob: leaf MT on the MXU (requires PUPIL_TCL=32 so each leaf is
-# one 128-lane slice of the linear-form table; pallas_bvh.py)
-MXU_MT = bool(_os.environ.get("PUPIL_MXU_MT"))
-
-
-def _rb_for(scene: "SceneData") -> int:
-    from pupiloptixlab_tpu.accel.pallas_bvh import STREAM_TRI_BYTES
-
-    packed = scene.tris.packed
-    streamed = packed.shape[0] * packed.shape[1] * 4 > STREAM_TRI_BYTES
-    return RB_STREAMED if streamed else RB_RESIDENT
 
 
 def _register(cls):
@@ -80,21 +55,6 @@ class Hit:
         return self.kind >= 0
 
 
-# Test hook: when True, the Pallas sweep paths (including their sort /
-# un-permute wrappers and the combined pair sweep) run on CPU in Pallas
-# interpret mode, so the wrapper logic is covered by the CPU test suite
-# instead of only executing on real TPU hardware.
-_PALLAS_INTERPRET = False
-
-
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu" or _PALLAS_INTERPRET
-
-
-def _interp() -> bool:
-    return _PALLAS_INTERPRET and jax.default_backend() != "tpu"
-
-
 def _mt_planes(ro: Vec3, rd: Vec3, p0: Vec3, e1: Vec3, e2: Vec3):
     """Moller-Trumbore on planes; broadcast-compatible shapes."""
     pvec = rd.cross(e2)
@@ -109,16 +69,12 @@ def _mt_planes(ro: Vec3, rd: Vec3, p0: Vec3, e1: Vec3, e2: Vec3):
 
 
 def _ray_sort_key(ro: Vec3, rd: Vec3) -> jnp.ndarray:
-    """Coherence key for bounce rays: direction OCTANT (3 bits, major),
-    then interleaved quantized origin (7 bits/axis), then quantized
-    direction (2 bits/axis).
-
-    Origin-major (after the octant split) follows the classic GPU ray
-    reordering result: secondary rays from nearby surface points enter
-    the same subtree first, and the octant bucket keeps the traversal
-    order heuristic (sign-based near-child) valid per tile. A
-    direction-major key (tried first) scatters nearby origins across the
-    whole tile set and measured no better than unsorted on bounce rays."""
+    """Coherence key for secondary rays without a known origin
+    primitive: direction OCTANT (3 bits, major), then interleaved
+    quantized origin (5 bits/axis), then quantized direction (4
+    bits/axis). Rays from nearby surface points heading the same way
+    then sit in neighbouring lanes, so a warp walks similar paths
+    through the tree (the classic GPU ray-reordering key)."""
     def q(v, lo, inv_ext, bits):
         top = jnp.float32((1 << bits) - 1)
         return jnp.clip(((v - lo) * inv_ext * top).astype(jnp.uint32), 0, (1 << bits) - 1)
@@ -161,33 +117,15 @@ def _ray_sort_key(ro: Vec3, rd: Vec3) -> jnp.ndarray:
     )
 
 
-SORT_CHUNK_THRESHOLD = 16  # sort rays when the scene has > this many chunks
-
-
 def _ray_sort_key_leaf(origin_prim, rd: Vec3, config: RenderConfig, mask=None):
     """Coherence keys for secondary rays WITH a known origin primitive:
-    (coarse origin-leaf group, 18-bit direction Morton, fine leaf).
+    (coarse origin-leaf group, 18-bit direction Morton).
 
     Bounce and NEE shadow rays originate ON a primitive whose row index
     is already BVH-ordered (accel/bvh.py reorders triangle rows), so
     ``prim // tcl`` is a spatial cell id for free — finer and cheaper
-    than re-quantizing origins. Measured on dumped 1080p mesh_env rays
-    (48-tile samples, segment-proxy leaf unions per 1024-ray tile):
-
-      key                 bounce1  bounce2  shadow1  shadow2
-      origin-morton|dir     107       50      237      139   (round-2 key)
-      leaf/4 | dir | leaf    33       39      101       75
-
-    The coarse group keeps nearby surfaces together and the direction
-    bits make each tile a cone (critical for env NEE rays). A fine-leaf
-    SECOND key was carried through round 3 and then dropped: re-measured
-    on the same dumped rays it is a wash or worse (unions 124.6 -> 101.1
-    shadow-1, 26.8 -> 23.0 bounce-1, 77.4 -> 86.2 shadow-2), and
-    dropping it saves one sort operand per sweep and makes every ray
-    sort single-key. Sharing ONE sort between the shadow and bounce
-    sweeps of a bounce (same origins) was also measured and rejected:
-    whichever sweep loses its direction bits explodes (shadow-1 unions
-    124.6 -> 434.4 under the bounce key; mesh_env frame 535 -> 584 ms).
+    than re-quantizing origins. The coarse group keeps nearby surfaces
+    together and the direction bits make each run of lanes a cone.
     Returns a 1-tuple of u32 keys for lax.sort."""
     tcl = max(config.bvh_tcl, 1)
     n_leaves = max(config.tri_count // tcl, 1)
@@ -210,49 +148,40 @@ def _ray_sort_key_leaf(origin_prim, rd: Vec3, config: RenderConfig, mask=None):
     md6 = (
         (expand6(q6(rd.x)) << 2) | (expand6(q6(rd.y)) << 1) | expand6(q6(rd.z))
     )
-    # clamp the coarse group to 14 bits: past 2^14 groups (~2.1M tris at
-    # tcl=32) the shift would wrap the u32, scrambling sort coherence and
-    # colliding with the 0xFFFFFFFF masked-lane sentinel
+    # clamp the coarse group to 14 bits: past 2^14 groups the shift
+    # would wrap the u32, scrambling sort coherence and colliding with
+    # the 0xFFFFFFFF masked-lane sentinel
     k1 = (jnp.minimum(leaf >> 2, jnp.uint32((1 << 14) - 1)) << 18) | md6
     # live keys never reach the dead sentinel (a max-coarse, max-Morton
     # lane would otherwise alias it and get culled by the tmax-from-key
     # reconstruction in _sorted_ray_sweep)
     k1 = jnp.minimum(k1, jnp.uint32(0xFFFFFFFE))
     if mask is not None:
-        # culled lanes sort LAST: their tiles hold only empty-interval
-        # rays, so the traversal kernel exits at the root slab test
+        # culled lanes sort LAST, so they fill whole warps that exit at
+        # the root
         k1 = jnp.where(mask, k1, jnp.uint32(0xFFFFFFFF))
     return (k1,)
 
 
 def _sorted_ray_sweep(
-    ro: Vec3, rd: Vec3, tmin, tmax, coherent, n_chunks, run,
-    sort_keys=None, const_tmin=None, const_tmax=None, rb=RB_RESIDENT,
+    ro: Vec3, rd: Vec3, tmin, tmax, coherent, run,
+    sort_keys=None, const_tmin=None, const_tmax=None,
 ):
-    """Shared pad + coherence-sort + un-permute wrapper around a sweep
-    callable ``run(arrays) -> (t, idx-or-occluded)``.
+    """Coherence-sort + un-permute wrapper around a traversal callable
+    ``run(arrays) -> outputs`` (arrays: ro xyz, rd xyz, tmin, tmax).
 
     ``const_tmin`` / ``const_tmax`` (floats) promise the respective
     interval bound is constant over LIVE lanes, so it rides through the
-    sort as a rebuilt constant instead of a carried operand (each
-    operand costs ~2 ms per 2M-lane sweep). A const_tmax with masked
-    lanes is reconstructed from the dead-lane sort-key sentinel
-    (0xFFFFFFFF -> empty interval)."""
-    from pupiloptixlab_tpu.accel.pallas_intersect import LANES
-
+    sort as a rebuilt constant instead of a carried operand. A
+    const_tmax with masked lanes is reconstructed from the dead-lane
+    sort-key sentinel (0xFFFFFFFF -> empty interval)."""
     n = ro.x.shape[0]
-    block = LANES * rb
-    pad = (-n) % block
-
-    def padv(a):
-        return jnp.concatenate([a, jnp.zeros(pad, a.dtype)], 0) if pad else a
-
-    # Incoherent (bounce) rays defeat tile-level culling; restore
-    # coherence by sorting rays: by (origin-leaf, direction) when the
-    # caller knows the origin primitive (_ray_sort_key_leaf), else by
-    # direction+origin Morton code. A multi-operand lax.sort carries all
-    # ray planes + the original lane id through (no big-table gathers).
-    do_sort = (not coherent) and n_chunks > SORT_CHUNK_THRESHOLD
+    # Incoherent (secondary) rays are sorted so neighbouring lanes share
+    # traversal paths. A multi-operand lax.sort carries all ray planes +
+    # the original lane id through (no big-table gathers): by
+    # (origin-leaf, direction) when the caller knows the origin primitive
+    # (_ray_sort_key_leaf), else by direction+origin Morton code.
+    do_sort = not coherent
     trim_tmin = do_sort and const_tmin is not None
     trim_tmax = do_sort and const_tmax is not None and sort_keys is not None
     arrays = [ro.x, ro.y, ro.z, rd.x, rd.y, rd.z]
@@ -274,8 +203,7 @@ def _sorted_ray_sweep(
             arrays.append(jnp.where(dead, -1.0, const_tmax))
         if trim_tmin:
             arrays.insert(6, jnp.full(n, const_tmin, jnp.float32))
-    outs = run([padv(a) for a in arrays])
-    outs = [o[:n] for o in outs]
+    outs = list(run(arrays))
     if do_sort:
         # un-permute by sorting back on the carried lane ids
         unsorted = jax.lax.sort(
@@ -290,7 +218,7 @@ def origin_sort_prim(hit: "Hit", scene: SceneData, config: RenderConfig):
     (_ray_sort_key_leaf groups rays by ``value // tcl``): the BVH-
     ordered world tri row for baked scenes, or an (instance, shape-leaf)
     -unique value for instanced scenes (two instances of one shape are
-    far apart in world space — sharing their key would scramble tile
+    far apart in world space — sharing their key would scramble ray
     locality). -1 for sphere hits / misses."""
     base = jnp.where(hit.kind == 0, hit.prim, -1)
     if not config.instanced:
@@ -301,91 +229,53 @@ def origin_sort_prim(hit: "Hit", scene: SceneData, config: RenderConfig):
     return jnp.where(hit.kind == 0, leafed, -1)
 
 
-def _sweep_tris_pallas(
-    ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
-    config: RenderConfig, coherent: bool = True, origin_prim=None, mask=None,
+def _bvh_tris(
+    ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData, config: RenderConfig,
+    anyhit: bool, coherent: bool = True, origin_prim=None, mask=None,
     const_tmin=None, const_tmax=None,
 ):
-    n_chunks = scene.tris.chunk_boxes.shape[0]
-    rb = _rb_for(scene)
+    """BVH traversal of the triangle tables on this backend's route.
+    Closest: (t, prim, kind, inst) in Hit layout; any-hit: (N,) bool."""
+    tris = scene.tris
+    route = traversal_route(jax.default_backend())
     sort_keys = (
         _ray_sort_key_leaf(origin_prim, rd, config, mask)
-        if origin_prim is not None and config.bvh_nodes > 0
+        if origin_prim is not None
         else None
     )
-
-    if config.bvh_nodes > 0 and config.instanced:
-        from pupiloptixlab_tpu.accel.pallas_bvh import bvh_closest
-
-        def run(arrays):
-            return bvh_closest(
-                *arrays,
-                scene.tris.packed,
-                scene.tris.bvh_child,
-                scene.tris.bvh_axis,
-                scene.tris.bvh_boxes,
-                rb=rb,
-                tcl=config.bvh_tcl,
-                instanced=True,
-                leaf_start=scene.tris.leaf_start,
-                leaf_inst=scene.tris.leaf_inst,
-                inst_w2o=scene.tris.inst_w2o,
-                interpret=_interp(),
-            )
-
-        t, idx, leaf = _sorted_ray_sweep(
-            ro, rd, tmin, tmax, coherent, n_chunks, run,
-            sort_keys=sort_keys, const_tmin=const_tmin,
-            const_tmax=const_tmax, rb=rb,
-        )
-        inst = jnp.take(
-            scene.tris.leaf_inst, jnp.maximum(leaf, 0), axis=0
-        ).astype(jnp.int32)
-        hit = idx >= 0
-        return (
-            jnp.where(hit, t, MAX_DISTANCE),
-            jnp.where(hit, idx, 0),
-            jnp.where(hit, 0, -1),
-            jnp.where(hit, inst, 0),
-        )
-
-    if config.bvh_nodes > 0:
-        from pupiloptixlab_tpu.accel.pallas_bvh import bvh_closest
-
-        def run(arrays):
-            return bvh_closest(
-                *arrays,
-                scene.tris.packed,
-                scene.tris.bvh_child,
-                scene.tris.bvh_axis,
-                scene.tris.bvh_boxes,
-                rb=rb,
-                tcl=config.bvh_tcl,
-                interpret=_interp(),
-                mxu=MXU_MT and config.bvh_tcl == 32,
-            )
-    else:
-        from pupiloptixlab_tpu.accel.pallas_intersect import sweep_triangles
-
-        def run(arrays):
-            return sweep_triangles(
-                *arrays,
-                scene.tris.packed,
-                scene.tris.chunk_boxes,
-                rb=rb, tc=64, interpret=_interp(),
-            )
-
-    t, idx = _sorted_ray_sweep(
-        ro, rd, tmin, tmax, coherent, n_chunks, run, sort_keys=sort_keys,
-        const_tmin=const_tmin, const_tmax=const_tmax, rb=rb,
+    inst = dict(
+        instanced=config.instanced,
+        leaf_start=tris.leaf_start,
+        leaf_inst=tris.leaf_inst,
+        inst_w2o=tris.inst_w2o,
     )
+
+    def run(arrays):
+        out = traverse(
+            route, Vec3(*arrays[0:3]), Vec3(*arrays[3:6]), arrays[6],
+            arrays[7], tris.packed, tris.bvh_child, tris.bvh_boxes,
+            config.bvh_tcl, anyhit=anyhit, **inst,
+        )
+        return (out.astype(jnp.int32),) if anyhit else out
+
+    outs = _sorted_ray_sweep(
+        ro, rd, tmin, tmax, coherent, run, sort_keys=sort_keys,
+        const_tmin=const_tmin, const_tmax=const_tmax,
+    )
+    if anyhit:
+        return outs[0] != 0
+    t, idx = outs[0], outs[1]
     hit = idx >= 0
-    n = ro.x.shape[0]
+    if config.instanced:
+        inst_id = jnp.take(tris.leaf_inst, jnp.maximum(outs[2], 0), axis=0)
+        inst_id = jnp.where(hit, inst_id.astype(jnp.int32), 0)
+    else:
+        inst_id = jnp.zeros(ro.x.shape[0], jnp.int32)
     return (
         jnp.where(hit, t, MAX_DISTANCE),
         jnp.where(hit, idx, 0),
         jnp.where(hit, 0, -1),
-        jnp.zeros(n, jnp.int32),
+        inst_id,
     )
 
 
@@ -395,7 +285,9 @@ def _pick_chunk(n_rays: int, n_tris: int, budget: int = 1 << 22) -> int:
 
 
 def _sweep_tris_xla(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData):
-    """CPU/debug fallback: chunked scan carrying the closest hit."""
+    """Brute-force closest hit: a chunked scan over every triangle.
+    The reference the BVH traversal is tested against, and the route of
+    scenes flattened without a BVH (PUPIL_NO_BVH)."""
     n_tris = scene.tris.packed.shape[0]
     n = ro.x.shape[0]
     chunk = _pick_chunk(n, n_tris)
@@ -446,10 +338,10 @@ def _sweep_tris_xla(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData):
 
 def _sweep_tris_xla_instanced(ro: Vec3, rd: Vec3, tmin, tmax,
                               scene: SceneData, config: RenderConfig):
-    """CPU/debug fallback for INSTANCED scenes: scan over world leaves,
-    transforming rays into each leaf's instance object space (same
-    semantics as the Pallas instanced kernel; the correctness oracle for
-    it)."""
+    """Brute-force closest hit for INSTANCED scenes: scan over world
+    leaves, transforming rays into each leaf's instance object space
+    (the same semantics as the instanced traversal, and its test
+    reference)."""
     tris = scene.tris
     tcl = max(config.bvh_tcl, 1)
     n = ro.x.shape[0]
@@ -509,8 +401,7 @@ def _sphere_tests(ro: Vec3, rd: Vec3, scene: SceneData, tmin, tmax):
     """Analytic unit-sphere hits in each sphere's object frame.
 
     Returns (t (S,N), hit (S,N)) in sphere-major layout: the ray axis
-    rides the TPU lane dimension densely (an (N,S) layout would pad the
-    tiny S minor axis to 128 lanes).
+    stays the contiguous minor dimension.
     """
     w2o = scene.spheres.w2o  # (S,3,4)
 
@@ -623,13 +514,12 @@ def intersect_closest(
 ) -> Hit:
     """``origin_prim``: per-lane primitive index the ray originates on
     (tri row in BVH order; anything out of [0, tri_count) groups as
-    'other'). Enables the measured-best secondary-ray sort key — see
+    'other'). Selects the origin-leaf secondary-ray sort key — see
     _ray_sort_key_leaf.
 
     ``mask``: lanes whose result the caller will actually use. Culled
     lanes get an EMPTY ray interval (tmax = -1, guaranteed miss on every
-    backend) and sort to the end, so whole tiles of dead rays terminate
-    at the BVH root — the TPU analog of not launching the ray at all.
+    backend) and sort to the end, so they exit at the BVH root.
 
     ``const_tmin`` / ``const_tmax``: static promises that the bound is
     that constant on live lanes, letting the ray sort drop the operand
@@ -644,14 +534,11 @@ def intersect_closest(
         jnp.zeros(n, jnp.int32),
     )
     if config.tri_count > 0:
-        if _use_pallas():
-            best = _sweep_tris_pallas(
-                ro, rd, tmin, tmax, scene, config, coherent, origin_prim,
-                mask, const_tmin, const_tmax,
-            )
-        elif config.instanced:
-            best = _sweep_tris_xla_instanced(
-                ro, rd, tmin, tmax, scene, config
+        if config.bvh_nodes > 0:
+            best = _bvh_tris(
+                ro, rd, tmin, tmax, scene, config, anyhit=False,
+                coherent=coherent, origin_prim=origin_prim, mask=mask,
+                const_tmin=const_tmin, const_tmax=const_tmax,
             )
         else:
             best = _sweep_tris_xla(ro, rd, tmin, tmax, scene) + (
@@ -694,77 +581,19 @@ def intersect_any(
 
     On BVH scenes this runs a dedicated terminate-on-first-hit traversal
     (the reference's shadow rays, render/emitter.h:91-100) — no
-    closest-hit bookkeeping, lanes drop out once occluded. Elsewhere the
-    closest-hit sweep doubles as the occlusion test.
+    closest-hit bookkeeping, a ray stops at its first occluder.
+    Elsewhere the closest-hit sweep doubles as the occlusion test.
 
-    ``mask``: see intersect_closest — culled lanes return un-occluded
-    and cost nothing (empty interval + sorted last).
+    ``mask``: see intersect_closest — culled lanes return un-occluded.
     """
     if mask is not None:
         tmax = jnp.where(mask, tmax, -1.0)
-    if config.tri_count > 0 and config.bvh_nodes > 0 and _use_pallas():
-        from pupiloptixlab_tpu.accel.pallas_bvh import bvh_anyhit
-
-        rb = _rb_for(scene)
-
-        def run(arrays):
-            occ = bvh_anyhit(
-                *arrays,
-                scene.tris.packed,
-                scene.tris.bvh_child,
-                scene.tris.bvh_axis,
-                scene.tris.bvh_boxes,
-                rb=rb,
-                tcl=config.bvh_tcl,
-                instanced=config.instanced,
-                leaf_start=scene.tris.leaf_start if config.instanced else None,
-                leaf_inst=scene.tris.leaf_inst if config.instanced else None,
-                inst_w2o=scene.tris.inst_w2o if config.instanced else None,
-                interpret=_interp(),
-            )
-            return (occ.astype(jnp.int32),)
-
-        n_chunks = scene.tris.chunk_boxes.shape[0]
-        sort_keys = (
-            _ray_sort_key_leaf(origin_prim, rd, config, mask)
-            if origin_prim is not None
-            else None
+    if config.tri_count > 0 and config.bvh_nodes > 0:
+        occluded = _bvh_tris(
+            ro, rd, tmin, tmax, scene, config, anyhit=True,
+            coherent=coherent, origin_prim=origin_prim, mask=mask,
+            const_tmin=const_tmin,
         )
-        (occ,) = _sorted_ray_sweep(
-            ro, rd, tmin, tmax, coherent, n_chunks, run, sort_keys=sort_keys,
-            const_tmin=const_tmin, rb=rb,
-        )
-        occluded = occ != 0
-        if config.sphere_count > 0:
-            t_s, hit_s = _sphere_tests(ro, rd, scene, tmin, tmax)
-            occluded = occluded | jnp.any(hit_s, axis=0)
-        if config.curve_count > 0:
-            t_c, hit_c = _curve_tests(ro, rd, scene, tmin, tmax)
-            occluded = occluded | jnp.any(hit_c, axis=0)
-        return occluded
-    if config.tri_count > 0 and config.bvh_nodes == 0 and _use_pallas():
-        # chunk-sweep scenes (cornell/veach class): dedicated any-hit
-        # kernel — no closest min/argmin bookkeeping on the half of all
-        # sweeps that are shadow sweeps
-        from pupiloptixlab_tpu.accel.pallas_intersect import (
-            sweep_triangles_any,
-        )
-
-        rb = _rb_for(scene)
-
-        def run(arrays):
-            occ = sweep_triangles_any(
-                *arrays, scene.tris.packed, scene.tris.chunk_boxes,
-                rb=rb, tc=64, interpret=_interp(),
-            )
-            return (occ,)
-
-        n_chunks = scene.tris.chunk_boxes.shape[0]
-        (occ,) = _sorted_ray_sweep(
-            ro, rd, tmin, tmax, coherent, n_chunks, run,
-            sort_keys=None, const_tmin=const_tmin, rb=rb,
-        )
-        occluded = occ != 0
         if config.sphere_count > 0:
             t_s, hit_s = _sphere_tests(ro, rd, scene, tmin, tmax)
             occluded = occluded | jnp.any(hit_s, axis=0)

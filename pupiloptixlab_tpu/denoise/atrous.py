@@ -74,10 +74,9 @@ def _atrous_denoise_jnp(
     iterations, use_albedo, use_normal,
     sigma_color, sigma_albedo, sigma_normal, sigma_variance, n_aovs,
 ):
-    # All arithmetic runs on (h, w) CHANNEL PLANES: a (h, w, 3) layout
-    # pads the minor dim 3 to the 128-lane TPU tile, multiplying HBM
-    # traffic ~42x (the render/vec.py Vec3 rule applied to images;
-    # measured 28.5 -> ~4 ms for the 5-iteration filter at 1080p).
+    # All arithmetic runs on (h, w) CHANNEL PLANES (the render/vec.py
+    # Vec3 rule applied to images): every tap is a contiguous slice and
+    # XLA fuses each iteration's 25 taps into few kernels.
     def planes(img):
         return [img[..., c] for c in range(3)]
 
@@ -220,22 +219,6 @@ def atrous_denoise(
     the beauty (the APPLY_TO_AOV semantics). When given, returns
     (color', tuple(aovs')) instead of color' alone.
     """
-    plain = variance is None and not aovs
-    if jax.default_backend() == "tpu" and plain:
-        # VMEM-windowed kernel: ~3x HBM per iteration instead of ~25x
-        # (interpret-mode parity pinned in tests/test_denoise.py).
-        # Variance/AOV modes take the jnp path (still plane-based).
-        from pupiloptixlab_tpu.denoise.pallas_atrous import (
-            atrous_denoise_pallas,
-        )
-
-        return atrous_denoise_pallas(
-            color, albedo, normal,
-            iterations=iterations,
-            use_albedo=use_albedo, use_normal=use_normal,
-            sigma_color=sigma_color, sigma_albedo=sigma_albedo,
-            sigma_normal=sigma_normal,
-        )
     out, aovs_out = _atrous_denoise_jnp(
         color, albedo, normal, variance, tuple(aovs),
         iterations, use_albedo, use_normal,
@@ -298,8 +281,10 @@ def camera_motion_vectors(world_pos, hit_mask, prev_camera, width, height):
     c2s = jnp.linalg.inv(s2c)
     p = world_pos.reshape(-1, 3)
     ones = jnp.ones((p.shape[0], 1), jnp.float32)
-    cam = jnp.concatenate([p, ones], 1) @ w2c.T
-    samp = cam @ c2s.T
+    # f32 matmuls may run in TF32 on a GPU at default precision
+    hi = jax.lax.Precision.HIGHEST
+    cam = jnp.matmul(jnp.concatenate([p, ones], 1), w2c.T, precision=hi)
+    samp = jnp.matmul(cam, c2s.T, precision=hi)
     s = samp[:, :2] / jnp.maximum(jnp.abs(samp[:, 3:4]), 1e-12) * jnp.sign(
         samp[:, 3:4]
     )
@@ -351,7 +336,7 @@ def _upscale_2x_guided(
     """Joint-bilateral 2x upsample (Kopf et al. 2007) guided by
     FULL-resolution albedo/normal layers.
 
-    The TPU-honest stand-in for the reference's trained UPSCALE2X
+    A weight-free stand-in for the reference's trained UPSCALE2X
     denoiser model (optix/denoiser.cpp:62-75): the low-res radiance is
     resampled through a 3x3 low-res tap window whose weights combine a
     Gaussian spatial kernel with guide similarity at the TARGET (hi-res)

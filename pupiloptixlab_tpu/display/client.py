@@ -154,8 +154,9 @@ class DisplayClient:
 
             matplotlib.use("TkAgg")
             import matplotlib.pyplot as plt
-        except Exception:
-            log.info("no interactive backend; display client stays headless")
+        except Exception as exc:
+            log.info("no interactive window (matplotlib with TkAgg: %s); "
+                     "display client stays headless", exc)
             while not self.system._quit_flag.is_set():
                 time.sleep(0.1)
             return

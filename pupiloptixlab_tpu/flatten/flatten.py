@@ -47,6 +47,10 @@ from pupiloptixlab_tpu.flatten.types import (
 from pupiloptixlab_tpu.scene.emitters import EmitterType
 from pupiloptixlab_tpu.scene.materials import Material, MatType
 from pupiloptixlab_tpu.scene.scene import Scene
+
+# Device instancing (flatten/instanced.py) is considered only above this
+# many triangles: below it the deduplicated tables save little memory.
+INSTANCING_MIN_TRIS = 1024
 from pupiloptixlab_tpu.scene.shapes import ShapeType
 from pupiloptixlab_tpu.scene.textures import Texture, TextureType
 from pupiloptixlab_tpu.utils.camera import Camera, CameraDesc
@@ -701,29 +705,17 @@ def flatten_scene(
         )
 
     tri_count = len(t_mat)
-    # Scenes past the sweep's culling sweet spot get a real BVH
-    # (accel/bvh.py); its leaf size may exceed the sweep chunk, so pad to
-    # whichever is larger.
-    from pupiloptixlab_tpu.accel.bvh import build_bvh, pick_leaf_size
+    # Every triangle scene gets the 8-wide BVH (accel/bvh.py): even a
+    # 4-triangle scene renders faster through it than through the
+    # brute-force sweep on an H100 (CHANGES.md). Its leaf size may exceed
+    # the padding quantum, so pad to the larger.
+    from pupiloptixlab_tpu.accel.bvh import LEAF_SIZE, build_bvh
 
-    # PUPIL_NO_BVH: debug knob forcing the brute-force chunk sweep on
-    # BVH-scale scenes — with the pixel-id-keyed RNG, a BVH-vs-sweep
-    # render pair isolates traversal bugs at identical sample sequences
-    use_bvh = tri_count > 1024 and not _os.environ.get("PUPIL_NO_BVH")
-    if use_bvh:
-        # streamed tables (> the VMEM residency cutoff) fetch one leaf
-        # per DMA: bigger leaves amortize the fixed DMA latency; the
-        # resident kernel's leaf-drain loop favors the smaller tcl=16
-        # (see pick_leaf_size)
-        from pupiloptixlab_tpu.accel.pallas_bvh import STREAM_TRI_BYTES
-
-        will_stream = _round_up(tri_count, pad_tris_to) * 48 > STREAM_TRI_BYTES
-        bvh_tcl = pick_leaf_size(
-            _round_up(tri_count, pad_tris_to),
-            min_tcl=32 if will_stream else 16,
-        )
-    else:
-        bvh_tcl = 0
+    # PUPIL_NO_BVH: debug knob forcing the brute-force sweep — with the
+    # pixel-id-keyed RNG, a BVH-vs-sweep render pair isolates traversal
+    # bugs at identical sample sequences
+    use_bvh = tri_count > 0 and not _os.environ.get("PUPIL_NO_BVH")
+    bvh_tcl = LEAF_SIZE if use_bvh else 0
     t_pad = _round_up(tri_count, max(pad_tris_to, bvh_tcl))
 
     # Device-side instancing (flatten/instanced.py): when shapes repeat
@@ -739,7 +731,7 @@ def flatten_scene(
         not any(mm["emitter_base"] >= 0 for mm in inst_meta)
         and not s_mat and not c_rows
     )
-    if (allow_instanced and use_bvh
+    if (allow_instanced and use_bvh and tri_count > INSTANCING_MIN_TRIS
             and (not return_refit or inst_refit_ok) and unique_count
             and tri_count / unique_count >= 1.5):
         from pupiloptixlab_tpu.flatten.instanced import build_instanced_tables
@@ -753,8 +745,7 @@ def flatten_scene(
     build_world_bvh = use_bvh and inst_tab is None
 
     # --- Morton-order triangles (LBVH-lite): sorting by centroid code
-    # groups spatially-local triangles into the same sweep chunk so the
-    # per-chunk AABBs (computed in the Pallas wrapper) cull effectively.
+    # keeps spatially-local triangles in neighbouring rows.
     if tri_count > pad_tris_to:
         cat_p0 = np.concatenate(tp["p0"], axis=0)
         cat_p1 = np.concatenate(tp["p1"], axis=0)
@@ -830,7 +821,7 @@ def flatten_scene(
 
     # --- BVH build (GAS analog): reorders triangle rows so each leaf is
     # one contiguous TCL-aligned slice of the packed table ----------------
-    bvh_ch = bvh_ax = np.zeros(8, np.int32)
+    bvh_ch = np.zeros(8, np.int32)
     bvh_bx = np.zeros((8, 8), np.float32)
     bvh_nodes = 0
     if build_world_bvh:
@@ -842,41 +833,25 @@ def flatten_scene(
         p0_np = p0_np[o]
         tri_inst_np = tri_inst_np[o]
         t_urow_np = t_urow_np[o]
-        bvh_ch, bvh_ax, bvh_bx = bvh.child, bvh.axis, bvh.boxes
+        bvh_ch, bvh_bx = bvh.child, bvh.boxes
         bvh_nodes = bvh.n_nodes
-
-    # per-chunk AABBs over valid triangles only; all-padding chunks get
-    # inverted never-hit boxes (accel/pallas_intersect.py culling input)
-    tc = pad_tris_to
-    n_chunks = t_pad // tc
-    boxes = np.zeros((n_chunks, 8), np.float32)
-    lo_all = np.minimum(np.minimum(p0_np, p1w), p2w)
-    hi_all = np.maximum(np.maximum(p0_np, p1w), p2w)
-    lo_all[~valid] = 1e30   # big-finite: inf breeds NaN in the slab test
-    hi_all[~valid] = -1e30
-    boxes[:, 0:3] = lo_all.reshape(n_chunks, tc, 3).min(axis=1)
-    boxes[:, 3:6] = hi_all.reshape(n_chunks, tc, 3).max(axis=1)
 
     if inst_tab is not None:
         # deduplicated tables replace the baked world geometry entirely
         packed = inst_tab["packed"]
         attrs = inst_tab["attrs"]
         bvh_ch = inst_tab["bvh_child"]
-        bvh_ax = inst_tab["bvh_axis"]
         bvh_bx = inst_tab["bvh_boxes"]
         bvh_nodes = inst_tab["bvh_nodes"]
         bvh_tcl = inst_tab["tcl"]
-        boxes = np.zeros((max(packed.shape[0] // tc, 1), 8), np.float32)
         tris = TriSoup(
             packed=jnp.asarray(packed),
-            chunk_boxes=jnp.asarray(boxes),
             attrs=jnp.asarray(attrs),
             mat_id=jnp.zeros(packed.shape[0], jnp.int32),
             emitter_id=jnp.asarray(
                 attrs[:, TRI_EMITTER].astype(np.int32)
             ),
             bvh_child=jnp.asarray(bvh_ch),
-            bvh_axis=jnp.asarray(bvh_ax),
             bvh_boxes=jnp.asarray(bvh_bx),
             leaf_start=jnp.asarray(inst_tab["leaf_start"]),
             leaf_inst=jnp.asarray(inst_tab["leaf_inst"]),
@@ -887,12 +862,10 @@ def flatten_scene(
     else:
         tris = TriSoup(
             packed=jnp.asarray(packed),
-            chunk_boxes=jnp.asarray(boxes),
             attrs=jnp.asarray(attrs),
             mat_id=jnp.asarray(attrs[:, TRI_MAT].astype(np.int32)),
             emitter_id=jnp.asarray(attrs[:, TRI_EMITTER].astype(np.int32)),
             bvh_child=jnp.asarray(bvh_ch),
-            bvh_axis=jnp.asarray(bvh_ax),
             bvh_boxes=jnp.asarray(bvh_bx),
             leaf_start=jnp.zeros(1, jnp.int32),
             leaf_inst=jnp.zeros(1, jnp.int32),

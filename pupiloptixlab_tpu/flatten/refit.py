@@ -18,7 +18,7 @@ This module makes edits device-resident:
   matmuls, leaf/internal BVH boxes are refit bottom-up through a fixed
   number of passes (topology is static — exactly OptiX refit
   semantics, including the degraded box quality after large moves),
-  chunk AABBs are recomputed, and area-emitter rows + selection CDFs
+  and area-emitter rows + selection CDFs
   are rebuilt from the moved geometry.
 
 A transform edit therefore uploads O(instances) bytes (the transforms)
@@ -95,7 +95,7 @@ class InstRefitData:
     (world/ias_manager.cpp:116-151): recompute per-instance matrices,
     re-derive world leaf AABBs from the static object leaf AABBs, and
     refit the world box tree bottom-up with frozen topology. O(leaves)
-    host work (leaf count is SMEM-capped at ~12k), O(instances) upload.
+    host work (leaf count is capped at ~12k), O(instances) upload.
     Scope: mesh-only non-emissive scenes — flatten keeps the baked
     RefitData path otherwise (it must rebuild emitter rows too)."""
 
@@ -211,7 +211,7 @@ def _world_transforms(scene) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 @partial(
     jax.jit,
-    static_argnames=("tcl", "depth", "n_area", "emitter_num", "chunk"),
+    static_argnames=("tcl", "depth", "n_area", "emitter_num"),
 )
 def _refit_device(
     scene_data: SceneData,
@@ -235,7 +235,6 @@ def _refit_device(
     depth: int,
     n_area: int,
     emitter_num: int,
-    chunk: int = 64,
 ) -> SceneData:
     tris = scene_data.tris
     t_pad = tris.packed.shape[0]
@@ -244,12 +243,18 @@ def _refit_device(
     a = xf[tri_inst]                     # (T, 3, 4)
     nmat = nxf[tri_inst]                 # (T, 3, 3)
     vis = visible[tri_inst][:, None]     # (T, 1)
-    p0 = jnp.einsum("tij,tj->ti", a[:, :, :3], rows[:, 0:3]) + a[:, :, 3]
-    e1 = jnp.einsum("tij,tj->ti", a[:, :, :3], rows[:, 3:6]) * vis
-    e2 = jnp.einsum("tij,tj->ti", a[:, :, :3], rows[:, 6:9]) * vis
+    # batched mat-vecs lower to dot_general, which may run in TF32 on a
+    # GPU at default precision; the refit must match a host re-flatten
+    def matvec(m, v):
+        return jnp.einsum("tij,tj->ti", m, v,
+                          precision=jax.lax.Precision.HIGHEST)
+
+    p0 = matvec(a[:, :, :3], rows[:, 0:3]) + a[:, :, 3]
+    e1 = matvec(a[:, :, :3], rows[:, 3:6]) * vis
+    e2 = matvec(a[:, :, :3], rows[:, 6:9]) * vis
 
     def xnorm(n):
-        w = jnp.einsum("tij,tj->ti", nmat, n)
+        w = matvec(nmat, n)
         return w / jnp.maximum(
             jnp.linalg.norm(w, axis=1, keepdims=True), 1e-20
         )
@@ -286,16 +291,6 @@ def _refit_device(
     hi = jnp.maximum(jnp.maximum(p0, p1w), p2w)
     lo = jnp.where(tri_valid[:, None], lo, 1e30)
     hi = jnp.where(tri_valid[:, None], hi, -1e30)
-
-    n_chunks = t_pad // chunk
-    chunk_boxes = jnp.concatenate(
-        [
-            lo.reshape(n_chunks, chunk, 3).min(axis=1),
-            hi.reshape(n_chunks, chunk, 3).max(axis=1),
-            jnp.zeros((n_chunks, 2), jnp.float32),
-        ],
-        axis=1,
-    )
 
     if tris.bvh_child.shape[0] > 8 or depth > 0:
         n_leaves = t_pad // tcl
@@ -354,7 +349,6 @@ def _refit_device(
         tris,
         packed=packed,
         attrs=attrs,
-        chunk_boxes=chunk_boxes,
         bvh_boxes=bvh_boxes,
     )
 

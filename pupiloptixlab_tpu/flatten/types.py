@@ -1,6 +1,6 @@
 """Device-side scene data model: static-shape structure-of-arrays pytrees.
 
-This is the TPU replacement for the reference's GPU-resident objects:
+These arrays replace the reference's GPU-resident objects:
 
 * ``TextureTable``  <- cuda::Texture / CudaTextureManager (cuda/texture.h):
   a dense descriptor table + one flat pixel pool (software sampling
@@ -33,7 +33,7 @@ def _register(cls):
     return cls
 
 
-# --- packed-row column layouts (for one-hot matmul gathers) ---------------
+# --- packed-row column layouts (one row gather fetches every column) ------
 # TriSoup.attrs (T, 26): per-hit attributes fetched in one gather.
 # Cols 17:26 mirror packed[:, 0:9] (p0, e1, e2) so barycentrics are
 # recomputed INSIDE get_local_geometry from the same gather instead of
@@ -118,23 +118,21 @@ class TriSoup:
 
     The BVH arrays are the GAS analog (world/gas_manager.cpp:61-185):
     8-wide node tables built (and triangle rows reordered) by
-    accel/bvh.py. Empty (minimal shapes) when the scene is small enough
-    for the chunk-culled sweep (config.bvh_nodes == 0).
+    accel/bvh.py. Empty (minimal shapes) when the scene has no BVH
+    (config.bvh_nodes == 0: no triangles, or PUPIL_NO_BVH).
     """
 
-    packed: jnp.ndarray  # (T,12) [p0, e1, e2, pad] rows for the Pallas sweep
-    chunk_boxes: jnp.ndarray  # (T/64, 8) chunk AABBs for the sweep culling
+    packed: jnp.ndarray  # (T,12) [p0, e1, e2, pad] rows (sweep/traversal)
     attrs: jnp.ndarray   # (T, TRI_ATTR_COLS) hit attributes (see layout above)
     mat_id: jnp.ndarray      # (T,) i32
     emitter_id: jnp.ndarray  # (T,) i32; -1 = not an emitter
     bvh_child: jnp.ndarray   # (M*8,) i32; >=0 child node, <0 leaf start
-    bvh_axis: jnp.ndarray    # (M,) i32 dominant split axis
     bvh_boxes: jnp.ndarray   # (M*8, 8) f32 child AABB rows
     # --- device-side instancing (config.instanced; the GAS-reuse half
     # of the two-level accel, world/gas_manager.cpp:10-27): ``packed`` /
     # ``attrs`` hold UNIQUE OBJECT-space rows (one copy per shape, HBM
     # O(unique)), the world BVH's leaves index (leaf_start, leaf_inst),
-    # and the traversal transforms ray tiles into object space per leaf
+    # and the traversal transforms rays into object space per leaf
     # (t stays the world parameter: directions are NOT renormalized).
     # Minimal (1-row) placeholders when instanced is off.
     leaf_start: jnp.ndarray  # (L,) i32 tcl-aligned row start per world leaf
@@ -281,8 +279,8 @@ class RenderConfig:
     has_sphere_emitter: bool = True
     has_point_emitter: bool = False
     has_directional_emitter: bool = False
-    # BVH traversal (large meshes): node count + leaf size; 0 = use the
-    # chunk-culled sweep instead (small scenes, where it wins).
+    # BVH traversal: node count + leaf size; 0 = no triangles, or the
+    # brute-force sweep forced by PUPIL_NO_BVH.
     bvh_nodes: int = 0
     bvh_tcl: int = 0
     # Device-side instancing: the tri/attr tables hold unique object-

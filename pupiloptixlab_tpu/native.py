@@ -1,6 +1,6 @@
 """ctypes bindings for the native host runtime (native/pupil_native.cpp).
 
-The reference's host runtime is C++; this module keeps the TPU build's
+The reference's host runtime is C++; this module keeps this build's
 host hot paths native too: the 8-wide SAH BVH builder (the GAS-build
 analog) and the OBJ parser. The library is compiled lazily with g++ on
 first use (no pip/pybind11 dependency); every caller falls back to the

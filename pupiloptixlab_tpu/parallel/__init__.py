@@ -3,8 +3,3 @@ from pupiloptixlab_tpu.parallel.sharding import (  # noqa: F401
     render_frame_sharded,
     shard_scene,
 )
-from pupiloptixlab_tpu.parallel.balance import (  # noqa: F401
-    balanced_tile_perm,
-    render_frame_balanced,
-    tile_costs,
-)

@@ -1,26 +1,18 @@
 """Ring-sharded scene traversal: triangle tables sharded over the mesh,
-rotated chip-to-chip by ``ppermute`` while rays stay resident.
+rotated device-to-device by ``ppermute`` while rays stay resident.
 
-parallel/sharding.py replicates scene tables on every chip — fine for
-small scenes, contradictory for the HBM-streaming scenes the BVH path
-enables (a 405k-tri table on every chip). This module is the other
-regime: each chip holds 1/D of the triangle rows; a sweep runs D rounds,
-each testing the chip's (pixel-sharded) rays against the CURRENT table
-shard and then rotating the shard one hop around the ICI ring
+parallel/sharding.py replicates scene tables on every device — fine for
+small scenes, wasteful for very large ones. This module is the other
+regime: each device holds 1/D of the triangle rows; a sweep runs D
+rounds, each testing the device's (pixel-sharded) rays against the
+CURRENT table shard and then rotating the shard one hop around the ring
 (``jax.lax.ppermute``). After D rounds every ray has seen the whole
-scene with per-chip HBM O(T/D) and total ICI traffic of one full table
-per sweep (the classic ring-all-gather fused into compute — the
-"How to Scale Your Model" collective-matmul recipe applied to ray
-sweeps).
+scene with per-device memory O(T/D) and total link traffic of one full
+table per sweep (a ring all-gather fused into compute).
 
-Per-chip MT work equals the replicated pixel-sharded sweep (N/D rays x
-T rows); only residency and traffic change. The inner test has two
-interchangeable backends (``inner=``): a chunked jnp scan
-(backend-agnostic — the virtual CPU mesh in tests) and the Pallas chunk
-sweep ``accel.pallas_intersect.sweep_triangles`` (``inner="pallas"``,
-default on TPU) whose per-round chunk AABBs are built on the fly from
-the rotating shard; equality of the two is pinned by
-``tests/test_sharding.py::test_ring_sweep_pallas_inner_matches_jnp``.
+Two inner tests: ``ring_closest`` sweeps every row of the held shard
+(a chunked jnp scan), ``ring_closest_bvh`` walks the held shard's own
+8-wide BVH with this backend's traversal route (accel/traverse.py).
 """
 
 from __future__ import annotations
@@ -48,7 +40,6 @@ class RingBvh:
 
     rows: jnp.ndarray     # (D, S, 12) shard triangle rows (BVH order)
     child: jnp.ndarray    # (D, M*8) i32
-    axis: jnp.ndarray     # (D, M) i32
     boxes: jnp.ndarray    # (D, M*8, 8) f32
     remap: jnp.ndarray    # (D*S,) i32 local (shard, row) -> GLOBAL row
                           # (replicated: 4 B/tri vs 48 B/tri for rows)
@@ -56,23 +47,21 @@ class RingBvh:
     tcl: int
 
 
-def build_ring_bvh(tris_packed, mesh: Mesh, tcl: int | None = None,
-                   min_tcl: int = 16) -> RingBvh:
+def build_ring_bvh(tris_packed, mesh: Mesh, tcl: int | None = None) -> RingBvh:
     """Partition the GLOBAL BVH-ordered triangle table into D contiguous
     row ranges (contiguous ranges of a BVH-ordered table are spatially
     compact) and build one 8-wide BVH per shard (accel/bvh.py — the
-    same builder the single-chip path uses, so traversal inherits its
-    ~log leaf-union behavior instead of the chunk sweep's O(T/D) pair
-    tests per round; VERDICT r3 item 3)."""
+    same builder the single-device path uses, so each round costs
+    ~log(T/D) node visits per ray instead of O(T/D) triangle tests)."""
     import numpy as np
 
-    from pupiloptixlab_tpu.accel.bvh import build_bvh, pick_leaf_size
+    from pupiloptixlab_tpu.accel.bvh import LEAF_SIZE, build_bvh
 
     rows = np.asarray(tris_packed, np.float32)
     t, cols = rows.shape
     d = mesh.devices.size
     if tcl is None:
-        tcl = pick_leaf_size(max(-(-t // d), 1), min_tcl=min_tcl)
+        tcl = LEAF_SIZE
     shard_rows = -(-t // d)
     shard_rows = ((shard_rows + tcl - 1) // tcl) * tcl
     shard_rows = max(shard_rows, 2 * tcl)  # build_bvh needs T > tcl
@@ -80,7 +69,7 @@ def build_ring_bvh(tris_packed, mesh: Mesh, tcl: int | None = None,
     if pad:
         rows = np.concatenate([rows, np.zeros((pad, cols), np.float32)], 0)
 
-    shard_rows_l, childs, axes, boxes_l, remap = [], [], [], [], []
+    shard_rows_l, childs, boxes_l, remap = [], [], [], []
     for s in range(d):
         rs = rows[s * shard_rows : (s + 1) * shard_rows]
         valid = int(np.clip(t - s * shard_rows, 0, shard_rows))
@@ -105,25 +94,23 @@ def build_ring_bvh(tris_packed, mesh: Mesh, tcl: int | None = None,
             bv = build_bvh(p0, p1, p2, valid, tcl)
         shard_rows_l.append(rs[bv.order])
         childs.append(bv.child)
-        axes.append(bv.axis)
         boxes_l.append(bv.boxes)
         remap.append(s * shard_rows + bv.order.astype(np.int64))
 
     m_max = max(c.shape[0] // 8 for c in childs)
 
-    def pad_nodes(c, a, b):
+    def pad_nodes(c, b):
         m = c.shape[0] // 8
         if m == m_max:
-            return c, a, b
+            return c, b
         return (
             np.concatenate([c, np.full((m_max - m) * 8, -1, np.int32)]),
-            np.concatenate([a, np.zeros(m_max - m, np.int32)]),
             np.concatenate(
                 [b, np.zeros(((m_max - m) * 8, 8), np.float32)], 0
             ),
         )
 
-    padded = [pad_nodes(c, a, b) for c, a, b in zip(childs, axes, boxes_l)]
+    padded = [pad_nodes(c, b) for c, b in zip(childs, boxes_l)]
     spec = P(mesh.axis_names[0])
 
     def put(x, sharded=True):
@@ -134,8 +121,7 @@ def build_ring_bvh(tris_packed, mesh: Mesh, tcl: int | None = None,
     return RingBvh(
         rows=put(np.stack(shard_rows_l)),
         child=put(np.stack([p[0] for p in padded])),
-        axis=put(np.stack([p[1] for p in padded])),
-        boxes=put(np.stack([p[2] for p in padded])),
+        boxes=put(np.stack([p[1] for p in padded])),
         remap=put(np.concatenate(remap).astype(np.int32), sharded=False),
         shard_rows=shard_rows,
         tcl=tcl,
@@ -149,70 +135,50 @@ def ring_closest_bvh(
     tmin: jnp.ndarray,       # (N,)
     tmax: jnp.ndarray,       # (N,)
     ring: RingBvh,
-    rb: int = 8,
-    interpret: bool = False,
 ):
     """Closest hit with per-shard BVH TRAVERSAL under rotation: D rounds,
-    each walking the currently-held shard's own 8-wide tree
-    (accel/pallas_bvh.py) over the chip's resident rays, then rotating
-    the (rows, child, axis, boxes) tuple one ICI hop. Per-round work is
-    ~log(T/D) leaf visits per ray tile instead of the chunk sweep's
-    O(T/D) pair tests — the huge-scene regime this mode exists for.
-    Returns (t, idx) pixel-sharded, idx in GLOBAL rows (one replicated
-    remap take at the end; -1 = miss)."""
+    each walking the currently-held shard's own 8-wide tree over the
+    device's resident rays (accel/traverse.py, this backend's route),
+    then rotating the (rows, child, boxes) tuple one hop. Returns
+    (t, idx) pixel-sharded, idx in GLOBAL rows (one replicated remap
+    take at the end; -1 = miss)."""
     from jax import shard_map
 
-    from pupiloptixlab_tpu.accel.pallas_bvh import bvh_closest
+    from pupiloptixlab_tpu.accel.traverse import traversal_route, traverse
+    from pupiloptixlab_tpu.render.vec import Vec3
 
     axis_name = mesh.axis_names[0]
     d = mesh.devices.size
     s_rows = ring.shard_rows
     tcl = ring.tcl
+    route = traversal_route(mesh.devices.flat[0].platform)
 
-    def per_chip(ro, rd, tmn, tmx, rows, child, ax, boxes):
+    def per_device(ro, rd, tmn, tmx, rows, child, boxes):
         my = jax.lax.axis_index(axis_name)
         n = tmn.shape[0]
-        rows0, child0 = rows[0], child[0]
-        ax0, boxes0 = ax[0], boxes[0]
-
-        # dead-pad local rays to the (rb x 128) tile quantum; padding
-        # lanes carry an empty interval so the root slab rejects them
-        pad_n = (-n) % (rb * 128)
-
-        def padv(a, v=0.0):
-            return jnp.concatenate(
-                [a, jnp.full((pad_n,), v, a.dtype)]
-            ) if pad_n else a
-
-        rop = [padv(ro[i]) for i in range(3)]
-        rdp = [padv(rd[i], 1.0) for i in range(3)]
-        tmnp = padv(tmn, 1.0)
-        tmxp = padv(tmx, 0.0)
+        o = Vec3(ro[0], ro[1], ro[2])
+        dv = Vec3(rd[0], rd[1], rd[2])
 
         def round_body(k, carry):
-            bt, bs, bl, rows_c, child_c, ax_c, boxes_c = carry
-            tp, ip = bvh_closest(
-                *rop, *rdp, tmnp, tmxp,
-                rows_c, child_c, ax_c, boxes_c,
-                rb=rb, tcl=tcl, interpret=interpret,
-            )
-            t, i = tp[:n], ip[:n]
+            bt, bs, bl, rows_c, child_c, boxes_c = carry
+            t, i = traverse(route, o, dv, tmn, tmx, rows_c, child_c,
+                            boxes_c, tcl)
             better = (i >= 0) & (t < bt)
             bt = jnp.where(better, t, bt)
-            # the shard held at round k started life on chip (my+k)%d
+            # the shard held at round k started life on device (my+k)%d
             bs = jnp.where(better, (my + k) % d, bs)
             bl = jnp.where(better, i, bl)
             perm = [(i_, (i_ - 1) % d) for i_ in range(d)]
-            rows_c, child_c, ax_c, boxes_c = jax.lax.ppermute(
-                (rows_c, child_c, ax_c, boxes_c), axis_name, perm
+            rows_c, child_c, boxes_c = jax.lax.ppermute(
+                (rows_c, child_c, boxes_c), axis_name, perm
             )
-            return bt, bs, bl, rows_c, child_c, ax_c, boxes_c
+            return bt, bs, bl, rows_c, child_c, boxes_c
 
         init = (
             jnp.full(n, MAX_DISTANCE, jnp.float32),
             jnp.zeros(n, jnp.int32),
             jnp.full(n, -1, jnp.int32),
-            rows0, child0, ax0, boxes0,
+            rows[0], child[0], boxes[0],
         )
         bt, bs, bl, *_ = jax.lax.fori_loop(0, d, round_body, init)
         return bt, bs, bl
@@ -220,16 +186,14 @@ def ring_closest_bvh(
     vec = P(None, axis_name)
     spec = P(axis_name)
     fn = shard_map(
-        per_chip,
+        per_device,
         mesh=mesh,
-        in_specs=(vec, vec, spec, spec,
-                  spec, spec, spec, spec),
+        in_specs=(vec, vec, spec, spec, spec, spec, spec),
         out_specs=(spec, spec, spec),
         check_vma=False,
     )
     bt, bs, bl = jax.jit(fn)(
-        ro_flat, rd_flat, tmin, tmax,
-        ring.rows, ring.child, ring.axis, ring.boxes,
+        ro_flat, rd_flat, tmin, tmax, ring.rows, ring.child, ring.boxes,
     )
     # resolve (winning shard, local row) -> global row through the
     # replicated 4-byte remap (one native take per sweep)
@@ -322,24 +286,6 @@ def _local_closest(ro, rd, tmin, tmax, rows, base, chunk=1024):
     return bt, bp
 
 
-def _chunk_boxes(rows: jnp.ndarray, tc: int) -> jnp.ndarray:
-    """(T, 12) packed rows -> (T/tc, 8) chunk AABBs [min xyz, max xyz,
-    0, 0] over the three vertices v0, v0+e1, v0+e2 of each triangle.
-    All-zero padding rows give a degenerate point box at the origin —
-    a spurious chunk-cull pass at worst; the MT inside rejects them
-    (det = 0)."""
-    t = rows.shape[0]
-    g = rows.reshape(t // tc, tc, rows.shape[1])
-    v0 = g[:, :, 0:3]
-    v1 = v0 + g[:, :, 3:6]
-    v2 = v0 + g[:, :, 6:9]
-    lo = jnp.minimum(jnp.minimum(v0, v1), v2).min(axis=1)
-    hi = jnp.maximum(jnp.maximum(v0, v1), v2).max(axis=1)
-    return jnp.concatenate(
-        [lo, hi, jnp.zeros((t // tc, 2), rows.dtype)], axis=1
-    )
-
-
 def ring_closest(
     mesh: Mesh,
     ro_flat: jnp.ndarray,    # (3, N) ray origin component rows
@@ -348,65 +294,24 @@ def ring_closest(
     tmax: jnp.ndarray,       # (N,)
     tris_sharded: jnp.ndarray,  # (T_pad, 12) row-sharded over the mesh
     shard_rows: int,
-    inner: str = "jnp",      # "jnp" | "pallas"
-    interpret: bool = False,
 ):
     """Closest hit of all rays vs the full (sharded) table: D rounds of
     local sweep + one ppermute table rotation each. Returns (t, idx)
-    pixel-sharded like the inputs.
-
-    ``inner="pallas"`` runs each round through the Pallas chunk sweep
-    (ROADMAP #8): per-chip rays pad to the (8, 128) ray tile, the shard
-    pads to the 64-row chunk, and chunk AABBs are rebuilt per round from
-    the rotating shard (a jnp reduction — negligible next to the MT
-    volume, and it keeps the rotation payload at just the rows)."""
+    pixel-sharded like the inputs."""
     from jax import shard_map
 
     axis = mesh.axis_names[0]
     d = mesh.devices.size
-    use_pallas = inner == "pallas"
-    if use_pallas:
-        from pupiloptixlab_tpu.accel.pallas_intersect import sweep_triangles
 
-    def per_chip(ro, rd, tmn, tmx, shard):
+    def per_device(ro, rd, tmn, tmx, shard):
         my = jax.lax.axis_index(axis)
         n = tmn.shape[0]
 
-        if use_pallas:
-            # dead-pad local rays to the ray-tile quantum; padding lanes
-            # carry an empty (tmax <= tmin) interval so they never hit
-            pad_n = (-n) % 1024
-            tc = 64
-            pad_t = (-shard.shape[0]) % tc
-
-            def padv(a, v=0.0):
-                return jnp.concatenate(
-                    [a, jnp.full((pad_n,), v, a.dtype)]
-                ) if pad_n else a
-
-            rop = [padv(ro[i]) for i in range(3)]
-            rdp = [padv(rd[i], 1.0) for i in range(3)]
-            tmnp = padv(tmn, 1.0)
-            tmxp = padv(tmx, 0.0)
-
         def round_body(k, carry):
             bt, bp, rows = carry
-            # the shard currently held started life on chip (my + k) % d
+            # the shard currently held started life on device (my + k) % d
             base = ((my + k) % d) * shard_rows
-            if use_pallas:
-                rows_p = (
-                    jnp.concatenate(
-                        [rows, jnp.zeros((pad_t, rows.shape[1]),
-                                         rows.dtype)], 0
-                    ) if pad_t else rows
-                )
-                tp, pp = sweep_triangles(
-                    *rop, *rdp, tmnp, tmxp, rows_p,
-                    _chunk_boxes(rows_p, tc), tc=tc, interpret=interpret,
-                )
-                t, p = tp[:n], pp[:n]
-            else:
-                t, p = _local_closest(ro, rd, tmn, tmx, rows, 0)
+            t, p = _local_closest(ro, rd, tmn, tmx, rows, 0)
             p = jnp.where(p >= 0, p + base, p)
             better = t < bt
             bt = jnp.where(better, t, bt)
@@ -428,7 +333,7 @@ def ring_closest(
     vec = P(None, axis)   # component rows, pixels sharded
     spec = P(axis)
     fn = shard_map(
-        per_chip,
+        per_device,
         mesh=mesh,
         in_specs=(vec, vec, spec, spec, spec),
         out_specs=(spec, spec),

@@ -1,15 +1,15 @@
-"""Multi-chip scaling: pixel/tile sharding over a jax.sharding.Mesh.
+"""Multi-device scaling: pixel/tile sharding over a jax.sharding.Mesh.
 
 The reference is a single-GPU program (SURVEY.md §2.10); this is the axis
 it never had. Design:
 
 * **Pixel (tile) sharding** — the film's flat pixel axis is sharded over
   the ``pixels`` mesh axis; the scene tables are replicated (scenes are
-  small relative to HBM). The integrator is elementwise over pixels with
-  gathers from replicated tables, so GSPMD partitions every sweep with
-  zero collectives in the hot loop — the only cross-chip traffic is the
-  final framebuffer gather to the host (which rides ICI, not the loop).
-* **Sample sharding** (for interactive low-res, many-spp) — each chip
+  small relative to device memory). The integrator is elementwise over
+  pixels with gathers from replicated tables; the CUDA traversal call
+  partitions per device (accel/cuda_bvh.py). The secondary-ray sort is a
+  global sort, which GSPMD partitions with collectives.
+* **Sample sharding** (for interactive low-res, many-spp) — each device
   renders the full film with a different seed; a ``psum``-mean merges.
 
 Both compose: mesh ("samples", "pixels").
@@ -17,6 +17,7 @@ Both compose: mesh ("samples", "pixels").
 
 from __future__ import annotations
 
+import functools
 from functools import partial
 
 import jax
@@ -36,7 +37,7 @@ def make_mesh(n_devices: int | None = None, axis: str = "pixels") -> Mesh:
 
 
 def shard_scene(scene: SceneData, mesh: Mesh) -> SceneData:
-    """Replicate the scene tables on every chip."""
+    """Replicate the scene tables on every device."""
     rep = NamedSharding(mesh, P())
     return jax.device_put(scene, rep)
 
@@ -54,18 +55,24 @@ def render_frame_sharded(
 
     ``accum`` must be (N, 3) with N divisible by the mesh size; the result
     keeps the same sharding so progressive accumulation never leaves the
-    chips.
+    devices.
     """
+    fn = _sharded_frame(mesh, config)
+    return fn(scene, camera, jnp.uint32(seed), jnp.int32(sample_cnt), accum)
+
+
+@functools.lru_cache(maxsize=16)
+def _sharded_frame(mesh: Mesh, config: RenderConfig):
+    """The jitted sharded frame step, built once per (mesh, config) so
+    progressive frames reuse one traced and compiled program."""
     pix = NamedSharding(mesh, P("pixels"))
     rep = NamedSharding(mesh, P())
-
-    fn = jax.jit(
+    return jax.jit(
         partial(render_frame, config=config),
         in_shardings=(rep, rep, rep, rep, pix),
         out_shardings=(pix, {"frame": pix, "albedo": pix, "normal": pix, "test": pix}),
         donate_argnums=(4,),
     )
-    return fn(scene, camera, jnp.uint32(seed), jnp.int32(sample_cnt), accum)
 
 
 def render_samples_sharded(
@@ -75,9 +82,9 @@ def render_samples_sharded(
     seed0: int,
     config: RenderConfig,
 ):
-    """Sample-parallel rendering: every chip traces the full film with its
-    own seed; a psum-mean over the ``samples`` axis merges (one collective
-    per call, riding ICI). Effective spp = mesh size. Returns (h*w, 3)."""
+    """Sample-parallel rendering: every device traces the full film with
+    its own seed; a psum-mean over the ``samples`` axis merges (one
+    collective per call). Effective spp = mesh size. Returns (h*w, 3)."""
     from jax import shard_map
 
     axis = mesh.axis_names[0]

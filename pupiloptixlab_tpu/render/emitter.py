@@ -238,11 +238,9 @@ def _env_sample_direct(em, tex, config, hit_pos: Vec3, hit_normal: Vec3, u1, u2)
         }
     # env-map importance sampling: the reference's two-step inversion
     # (env.h:24-48) — walk the sin-weighted ROW CDF with u1, then that
-    # row's COLUMN CDF with u2. The row CDF is tiny (h+1 entries ->
-    # Pallas count), and the row's column CDF arrives as ONE one-hot
-    # gather of the (h, w+1) table, inverted by a vectorized count.
-    # (A single joint-CDF inversion is equivalent math but costs an
-    # O(N*w*h) count or a 366 ms native searchsorted at 2M lanes.)
+    # row's COLUMN CDF with u2: two searchsorted inversions over small
+    # tables (h+1 entries, then the row's w+1 entries gathered as ONE
+    # row of the (h, w+1) table) instead of one over the h*w joint CDF.
     from pupiloptixlab_tpu.accel.gather import count_less, gather_cols as _gc
 
     row = jnp.clip(count_less(em.env_row_cdf, u1) - 1, 0, h - 1)

@@ -2,12 +2,12 @@
 
 The reference ships ``restir_test.xml`` (18 shapes, 6 small sphere
 lights) as the scene for a ReSTIR-style pass but no implementation; this
-module goes beyond parity with a TPU-native ReSTIR-DI estimator
+module goes beyond parity with a data-parallel ReSTIR-DI estimator
 (Bitterli et al. 2020, "Spatiotemporal reservoir resampling for
 real-time ray tracing with dynamic direct lighting" — public algorithm,
 re-derived here over plane arrays).
 
-Design for TPU:
+Design:
 
 * a Reservoir is six dense (N,) planes (light position / normal /
   radiance ride Vec3 planes) — no AoS, no per-lane control flow;

@@ -5,9 +5,9 @@ TEA-style scramble followed by an LCG whose 24 high-entropy bits map to
 [0, 1). Vectorized over lanes as uint32 ops; every lane consumes the same
 number of draws per bounce so the stream is pure data-parallel state.
 
-This exists for determinism/golden-test parity with the numpy oracle in
-``tests/oracle.py``; production paths may alternatively use jax.random or
-``pltpu.prng_random_bits`` inside Pallas kernels.
+This exists for determinism: renders are keyed by pixel id and seed, so
+golden images and BVH-vs-sweep render pairs compare sample for sample.
+Other code may use jax.random instead.
 """
 
 from __future__ import annotations

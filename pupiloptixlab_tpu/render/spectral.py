@@ -7,9 +7,9 @@ rotated strata, Wilkie et al. 2014 "Hero Wavelength Spectral
 Sampling"), enabling physically-based dispersion (rainbow caustics
 through glass) that an RGB renderer cannot express.
 
-TPU design: wavelengths are 4 extra (N,) planes (``Spec4`` — same
+Design: wavelengths are 4 extra (N,) planes (``Spec4`` — same
 structure-of-planes layout as Vec3); every spectral op is elementwise
-VPU work fused into the frame program. No tables are fetched per lane:
+work fused into the frame program. No tables are fetched per lane:
 
 * CIE 1931 color-matching functions use the Wyman-Sloan-Shirley
   piecewise-Gaussian analytic fits (JCGT 2013) — pure arithmetic.

@@ -1,7 +1,7 @@
 """Device texture sampling over the dense TextureTable (plane layout).
 
-The TPU has no texture units; sampling is software gathers. Descriptor
-fetch is one packed-column gather (one-hot matmul, accel/gather.py); only
+Sampling is software gathers (no texture units are used). Descriptor
+fetch is one packed-row gather (accel/gather.py); only
 actual bitmap pixel fetches touch the pool. Semantics parity:
 cuda::Texture::Sample (cuda/texture.h:33-57) — uv transform applied as
 [u,v,0,1] through two transform rows, RGB passthrough, the reference's
@@ -49,7 +49,7 @@ def _fetch(pool, offset, w, h, ix, iy) -> Vec3:
     ix = jnp.clip(ix, 0, jnp.maximum(w - 1, 0))
     iy = jnp.clip(iy, 0, jnp.maximum(h - 1, 0))
     flat = offset + iy * w + ix
-    cols = gather_cols(pool, flat)  # Pallas one-hot gather, (3, N)
+    cols = gather_cols(pool, flat)  # (3, N)
     return Vec3(cols[0], cols[1], cols[2])
 
 

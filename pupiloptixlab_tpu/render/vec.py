@@ -1,10 +1,10 @@
-"""Vec3: structure-of-planes vectors — the TPU-native vector layout.
+"""Vec3: structure-of-planes vectors — the device vector layout.
 
-A (N, 3) array on TPU is tiled (8, 128) with the minor dimension padded
-3 -> 128: every elementwise op moves ~42x more HBM bytes than the payload.
-``Vec3`` stores x/y/z as three dense (N,) planes instead, giving full
-lane utilization (this replaces the role of cuda/vec_math.h float3 in the
-reference's device code).
+``Vec3`` stores x/y/z as three dense (N,) planes instead of an (N, 3)
+array: every elementwise op reads and writes contiguous arrays, XLA fuses
+the per-component math, and no op pays for a narrow minor dimension (this
+replaces the role of cuda/vec_math.h float3 in the reference's device
+code).
 
 Vec3 is a NamedTuple, hence automatically a jax pytree (valid in jit
 args, scan carries, lax.cond branches).

@@ -2,8 +2,8 @@
 
 The reference ships four OptiX builtin round-curve intersection modules
 (reference: framework/optix/module.h:20-29): ROUND_LINEAR,
-ROUND_QUADRATIC_BSPLINE, ROUND_CUBIC_BSPLINE and ROUND_CATMULLROM. On
-TPU there is no hardware curve intersector; instead every basis
+ROUND_QUADRATIC_BSPLINE, ROUND_CUBIC_BSPLINE and ROUND_CATMULLROM. No
+hardware curve intersector is used here; instead every basis
 evaluates here (host-side, flatten time) to a polyline of rounded-cone
 segments that the analytic intersector handles
 (accel/intersect.py::_curve_tests). The radius channel rides the same

@@ -3,7 +3,7 @@
 Parity: system/buffer.{h,cpp} — named GPU buffers with a "displayable"
 flag feeding the GUI's buffer-selector dropdown. The DX12 shared-heap
 interop is replaced by plain jnp device arrays plus host fetches in the
-display client (there is no display-adjacent device memory on TPU).
+display client.
 """
 
 from __future__ import annotations

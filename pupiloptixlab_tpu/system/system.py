@@ -44,7 +44,7 @@ class System:
         web_port: int = 8090,
     ):
         """``display``: None (headless), "window" (matplotlib, needs a
-        local display) or "web" (HTTP/MJPEG client, the remote-TPU GUI).
+        local display) or "web" (HTTP/MJPEG client, the remote-host GUI).
         ``has_display=True`` keeps the old behavior ("window")."""
         self.events = EventBus()
         self.world = World(self.events)

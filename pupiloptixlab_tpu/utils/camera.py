@@ -1,6 +1,6 @@
 """Host-side interactive camera.
 
-Parity target: util::Camera (/root/reference/framework/util/camera.{h,cpp})
+Parity target: util::Camera (upstream framework/util/camera.{h,cpp})
 and world::CameraHelper (world/camera.h). Reproduces exactly:
 
 * ``sample_to_camera`` = transpose(inv(P_row @ T_row @ S_row)) where the

@@ -24,10 +24,18 @@ import jax.numpy as jnp
 import numpy as np
 
 
-def _checkpointer():
-    import orbax.checkpoint as ocp
+def _orbax():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as exc:
+        raise ImportError(
+            "render-state checkpoints need the 'orbax-checkpoint' package"
+        ) from exc
+    return ocp
 
-    return ocp.PyTreeCheckpointer()
+
+def _checkpointer():
+    return _orbax().PyTreeCheckpointer()
 
 
 def save_pytree(path: str | Path, tree) -> None:
@@ -36,7 +44,7 @@ def save_pytree(path: str | Path, tree) -> None:
 
 
 def load_pytree(path: str | Path, like=None):
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     path = Path(path).resolve()
     if like is not None:

@@ -1,11 +1,11 @@
-"""Device-value sanitizer — the TPU analog of the reference's debug
+"""Device-value sanitizer — the analog of the reference's debug
 exception machinery.
 
 The reference compiles every OptiX pipeline with exception flags
 DEBUG | TRACE_DEPTH | STACK_OVERFLOW (optix/pipeline.cpp:19) and runs
 ``CUDA_SYNC_CHECK`` after pre-passes (system/system.cpp:51): a *debug
 build option* that validates device execution at a pipeline boundary.
-There is no TSAN/ASAN analog on TPU (XLA programs are data-race-free by
+There is no TSAN/ASAN analog needed under XLA (programs are data-race-free by
 construction — no shared mutable state inside a jit), so the failure
 class that remains is VALUE corruption: NaN/Inf radiance, non-finite
 G-buffers, negative sample weights. This module compiles those checks

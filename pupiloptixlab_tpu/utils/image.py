@@ -1,10 +1,11 @@
-"""Image IO: EXR (scanline, NONE/ZIPS/ZIP), Radiance HDR (RGBE), and LDR.
+"""Image IO: EXR (scanline, NONE/ZIPS/ZIP), Radiance HDR (RGBE), and PNG.
 
 The reference loads textures with stb (LDR, gamma-2.2 decoded to linear,
 util/texture.cpp:112-115), stb-hdr and tinyexr, and saves screenshots as
 HDR/EXR (util/texture.cpp:13-85). There is no OpenEXR binding in this
 environment, so the EXR codec here is implemented from the file-format
-spec in pure numpy (half/float channels, NONE/ZIPS/ZIP compression).
+spec in pure numpy (half/float channels, NONE/ZIPS/ZIP compression), and
+PNG (8-bit gray/RGB/RGBA/palette, non-interlaced) likewise with zlib.
 
 All loaders return float32 RGBA arrays of shape (h, w, 4), linear light,
 row 0 = top (file order).
@@ -285,6 +286,119 @@ def write_hdr(path: str | Path, img: np.ndarray) -> None:
 LDR_GAMMA = 2.2  # stb LDR decode gamma (util/texture.cpp:112-115)
 
 
+# --------------------------------------------------------------------------
+# PNG (8-bit, non-interlaced)
+# --------------------------------------------------------------------------
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # color type -> samples
+
+
+def _png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (None/Sub/Up/Average/Paeth)."""
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype = rows[y, 0]
+        line = rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: running sum per byte lane
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 255
+        elif ftype == 2:  # Up
+            cur = (line + prev) & 255
+        elif ftype in (3, 4):  # Average / Paeth: left-to-right dependency
+            cur = line.copy()
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp] if x >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (cur[x] + pred) & 255
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """8-bit PNG -> uint8 (h, w, 4) RGBA (gray/palette expanded)."""
+    buf = Path(path).read_bytes()
+    if buf[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, palette, trns = 8, [], None, None
+    while pos < len(buf):
+        (length,) = struct.unpack(">I", buf[pos:pos + 4])
+        kind = buf[pos + 4:pos + 8]
+        data = buf[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", data)
+            if depth != 8 or interlace or ctype not in _PNG_CHANNELS:
+                raise ValueError(
+                    f"{path}: only 8-bit non-interlaced PNG is supported"
+                )
+        elif kind == b"PLTE":
+            palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(data, np.uint8)
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+    ch = _PNG_CHANNELS[ctype]
+    px = _png_unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
+    px = px.reshape(h, w, ch)
+    out = np.full((h, w, 4), 255, np.uint8)
+    if ctype == 3:
+        out[..., :3] = palette[px[..., 0]]
+        if trns is not None:
+            alpha = np.full(len(palette), 255, np.uint8)
+            alpha[: len(trns)] = trns
+            out[..., 3] = alpha[px[..., 0]]
+    elif ch <= 2:
+        out[..., :3] = px[..., :1]
+        if ch == 2:
+            out[..., 3] = px[..., 1]
+    else:
+        out[..., :ch] = px
+    return out
+
+
+def write_png(path: str | Path, img: np.ndarray) -> None:
+    """uint8 (h, w), (h, w, 3) or (h, w, 4) -> PNG file."""
+    Path(path).write_bytes(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 (h, w), (h, w, 3) or (h, w, 4) -> PNG bytes (filter 0)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    ctype = {1: 0, 3: 2, 4: 6}[ch]
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img.reshape(h, w * ch)], axis=1
+    ).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        crc = zlib.crc32(kind + data) & 0xFFFFFFFF
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
+
+    return (
+        _PNG_SIG
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, 6))
+        + chunk(b"IEND", b"")
+    )
+
+
 def load_image(path: str | Path) -> np.ndarray:
     """Load any supported image as linear float32 RGBA (h, w, 4)."""
     p = Path(path)
@@ -293,18 +407,16 @@ def load_image(path: str | Path) -> np.ndarray:
         return read_exr(p)
     if suffix == ".hdr":
         return read_hdr(p)
-    from PIL import Image
-
-    with Image.open(p) as im:
-        im = im.convert("RGBA")
-        arr = np.asarray(im, np.float32) / 255.0
+    if suffix != ".png":
+        raise ValueError(f"{p}: unsupported image format (EXR, HDR, PNG)")
+    arr = read_png(p).astype(np.float32) / 255.0
     out = arr.copy()
     out[..., :3] = arr[..., :3] ** LDR_GAMMA  # gamma decode to linear
     return out
 
 
 def save_image(path: str | Path, img: np.ndarray) -> None:
-    """Save float32 (h, w, 3|4); format from extension (EXR/HDR/PNG...)."""
+    """Save float32 (h, w, 3|4); format from extension (EXR/HDR/PNG)."""
     p = Path(path)
     suffix = p.suffix.lower()
     if img.dtype == np.uint8:
@@ -314,9 +426,7 @@ def save_image(path: str | Path, img: np.ndarray) -> None:
         # result is display-referred linear, not scene radiance)
         ch = img if img.ndim == 2 else img[..., :3]
         if suffix not in (".exr", ".hdr"):
-            from PIL import Image
-
-            Image.fromarray(ch).save(p)
+            write_png(p, ch)
             return
         img = (img.astype(np.float32) / 255.0) ** LDR_GAMMA
     if suffix == ".exr":
@@ -325,7 +435,5 @@ def save_image(path: str | Path, img: np.ndarray) -> None:
     if suffix == ".hdr":
         write_hdr(p, img)
         return
-    from PIL import Image
-
     ldr = np.clip(img[..., :3], 0.0, 1.0) ** (1.0 / LDR_GAMMA)
-    Image.fromarray((ldr * 255.0 + 0.5).astype(np.uint8)).save(p)
+    write_png(p, (ldr * 255.0 + 0.5).astype(np.uint8))

@@ -1,7 +1,7 @@
 """Host-side math: 4x4 affine transforms, AABB.
 
 Behavioral parity notes (conventions match the reference framework,
-/root/reference/framework/util/{type.h,transform.cpp}):
+upstream framework/util/{type.h,transform.cpp}):
 
 * Matrices are stored row-major but act in **column-vector** convention:
   ``p' = M @ [p, 1]`` with the translation in the last column.

@@ -2,7 +2,7 @@
 
 The reference's instrumentation is a per-pass Timer surfaced in the ImGui
 inspector plus a GUI FPS readout (system/pass.cpp:6-18, gui.cpp:535) and
-NVCC line info for Nsight. The TPU analogs:
+NVCC line info for Nsight. The analogs here:
 
 * ``FrameStats`` — rolling frame/pass timing statistics (the console
   readout, headless),
@@ -68,8 +68,9 @@ class FrameStats:
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/pupil_trace"):
-    """Capture a device profile (viewable in TensorBoard / Perfetto)."""
+def trace(logdir: str):
+    """Capture a device profile into ``logdir`` (viewable in TensorBoard /
+    Perfetto)."""
     import jax
 
     jax.profiler.start_trace(logdir)

@@ -1,6 +1,6 @@
 """Wavefront path tracer: persistent ray pool with continuous refill.
 
-The TPU redesign of the reference README's 3x-faster WavefrontPathTracer
+A redesign of the reference README's 3x-faster WavefrontPathTracer
 (README.md:16; the shipped framework only provides the DynamicArray queue
 primitive for it, cuda/util.h:68-139). Instead of one megakernel
 iteration per pixel per frame — where lanes whose paths died idle through

@@ -5,7 +5,7 @@ Parity: world::World + CameraHelper + RenderObject + the GAS/IAS managers
 world/{gas,ias}_manager.{h,cpp}) and EmitterHelper's dirty tracking
 (world/emitter.{h,cpp}).
 
-TPU translation: there are no BLAS/TLAS handles to build or refit — the
+Translation: there are no BLAS/TLAS handles to build or refit — the
 "acceleration structure" is the flattened world-space SoA (SceneData).
 An interactive transform edit therefore re-flattens (the IAS::Update
 analog); re-flattening is a host-side O(scene) pass producing fresh

@@ -315,37 +315,3 @@ def test_denoiser_class_apply_to_aov():
     assert out.shape == noisy.shape
     assert set(aovs) == {"diffuse"}
     assert aovs["diffuse"].shape == noisy.shape
-
-
-@pytest.mark.heavy
-def test_pallas_atrous_matches_jnp():
-    """The VMEM-windowed Pallas a-trous (interpret mode) is bit-close
-    to the jnp formulation, across guide modes, iteration counts and a
-    non-aligned film size."""
-    import jax.numpy as jnp
-
-    from pupiloptixlab_tpu.denoise.atrous import atrous_denoise
-    from pupiloptixlab_tpu.denoise.pallas_atrous import atrous_denoise_pallas
-
-    r = np.random.RandomState(7)
-    # 48x48 (not lane/stripe aligned) reuses the jnp compile cache from
-    # _noisy_scene-shaped tests above — the 5-iteration jnp reference
-    # costs ~1 min to compile per (shape, flags) variant
-    h, w = 48, 48
-    color = jnp.asarray(r.rand(h, w, 3).astype(np.float32))
-    albedo = jnp.asarray(r.rand(h, w, 3).astype(np.float32))
-    nr = r.randn(h, w, 3).astype(np.float32)
-    nr /= np.maximum(np.linalg.norm(nr, axis=-1, keepdims=True), 1e-9)
-    normal = jnp.asarray(nr)
-
-    for kwargs in (
-        {},
-        {"iterations": 2, "use_albedo": False, "use_normal": False},
-    ):
-        ref = np.asarray(atrous_denoise(color, albedo, normal, **kwargs))
-        got = np.asarray(
-            atrous_denoise_pallas(
-                color, albedo, normal, interpret=True, **kwargs
-            )
-        )
-        np.testing.assert_allclose(got, ref, atol=2e-6, rtol=1e-5)

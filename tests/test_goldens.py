@@ -7,6 +7,7 @@ loader, flattener, sampler, BSDFs, emitters or integrator shows up as an
 MSE drift. Regenerate with:  python tests/test_goldens.py --regen
 """
 
+import os
 import sys
 from pathlib import Path
 
@@ -83,7 +84,7 @@ def test_golden(name, reference_scene_dir):
 if __name__ == "__main__":
     if "--regen" in sys.argv:
         GOLDEN_DIR.mkdir(exist_ok=True)
-        ref = Path("/root/reference/data/static")
+        ref = Path(os.environ["PUPIL_REFERENCE_SCENES"])
         for name in CASES:
             img = _render_case(name, ref)
             np.savez_compressed(

@@ -116,14 +116,13 @@ def test_barycentric_interpolation():
 
 
 def test_chunk_sweep_anyhit_matches_closest():
-    """The dedicated chunk-sweep any-hit kernel (cornell-class scenes)
-    agrees with the closest-hit sweep's hit mask, including tmax
-    clipping (a hit beyond the light distance is not occlusion)."""
+    """Small (sweep-route) scenes answer occlusion with the closest-hit
+    sweep: intersect_any agrees with intersect_closest's hit mask,
+    including tmax clipping (a hit beyond the light distance is not
+    occlusion)."""
     import jax.numpy as jnp
 
-    from pupiloptixlab_tpu.accel.pallas_intersect import (
-        sweep_triangles, sweep_triangles_any,
-    )
+    from pupiloptixlab_tpu.accel.intersect import _sweep_tris_xla
 
     r = np.random.RandomState(4)
     t = 128
@@ -131,28 +130,31 @@ def test_chunk_sweep_anyhit_matches_closest():
     e1 = (r.rand(t, 3).astype(np.float32) - 0.5) * 0.6
     e2 = (r.rand(t, 3).astype(np.float32) - 0.5) * 0.6
     packed = np.concatenate([p0, e1, e2, np.zeros((t, 3), np.float32)], 1)
-    boxes = np.zeros((t // 64, 8), np.float32)
+    from types import SimpleNamespace
+
+    from pupiloptixlab_tpu.flatten.types import RenderConfig
+
+    scene = SimpleNamespace(tris=SimpleNamespace(packed=jnp.asarray(packed)))
+    config = RenderConfig(width=32, height=32, tri_count=t)
     n = 1024
     ro = np.zeros((n, 3), np.float32)
     ro[:, 2] = -4.0
     rd = r.rand(n, 3).astype(np.float32) - 0.5
     rd[:, 2] += 1.0
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    args = [jnp.asarray(a) for a in (
-        ro[:, 0], ro[:, 1], ro[:, 2], rd[:, 0], rd[:, 1], rd[:, 2],
-        np.full(n, 1e-3, np.float32), np.full(n, 1e16, np.float32))]
-    tb, ib = sweep_triangles(
-        *args, jnp.asarray(packed), jnp.asarray(boxes), rb=4, interpret=True
-    )
-    occ = sweep_triangles_any(
-        *args, jnp.asarray(packed), jnp.asarray(boxes), rb=4, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(occ) != 0, np.asarray(ib) >= 0)
+    o = Vec3(*(jnp.asarray(ro[:, k]) for k in range(3)))
+    d = Vec3(*(jnp.asarray(rd[:, k]) for k in range(3)))
+    tmin = jnp.full(n, 1e-3, jnp.float32)
+    far = jnp.full(n, 1e16, jnp.float32)
+    tb, ib, kb = _sweep_tris_xla(o, d, tmin, far, scene)
+    hit = intersect_closest(o, d, tmin, far, scene, config)
+    np.testing.assert_array_equal(np.asarray(hit.kind), np.asarray(kb))
+    occ = intersect_any(o, d, tmin, far, scene, config)
+    np.testing.assert_array_equal(np.asarray(occ), np.asarray(kb) == 0)
+    assert np.asarray(occ).any() and not np.asarray(occ).all()
 
     # clipped tmax: hits beyond 2.0 are not occlusion
-    args2 = args[:7] + [jnp.full(n, 2.0, jnp.float32)]
-    occ2 = sweep_triangles_any(
-        *args2, jnp.asarray(packed), jnp.asarray(boxes), rb=4, interpret=True
-    )
-    want = (np.asarray(ib) >= 0) & (np.asarray(tb) < 2.0)
-    np.testing.assert_array_equal(np.asarray(occ2) != 0, want)
+    occ2 = intersect_any(o, d, tmin, jnp.full(n, 2.0, jnp.float32), scene,
+                         config)
+    want = (np.asarray(kb) == 0) & (np.asarray(tb) < 2.0)
+    np.testing.assert_array_equal(np.asarray(occ2), want)

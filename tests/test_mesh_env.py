@@ -91,11 +91,9 @@ def test_envmap_importance_sampling_prefers_sun(mesh_scene):
 
 
 def test_sorted_pallas_sweeps_match_xla_fallback(mesh_scene):
-    """The full TPU sweep path — coherence sort, Pallas BVH kernels
-    (interpret mode), un-permute, masking, const-bound trimming — agrees
-    with the chunked XLA fallback on a real BVH scene. Covers the sort /
-    un-permute wrapper logic on CPU, which otherwise only executes on
-    real TPU hardware."""
+    """The full BVH traversal path — coherence sort, per-ray walk,
+    un-permute, masking, const-bound trimming — agrees with the
+    brute-force sweep over the same triangle rows on a real BVH scene."""
     from pupiloptixlab_tpu.accel import intersect as I
     from pupiloptixlab_tpu.render.sampling import MAX_DISTANCE
     from pupiloptixlab_tpu.render.vec import Vec3
@@ -139,12 +137,15 @@ def test_sorted_pallas_sweeps_match_xla_fallback(mesh_scene):
         )
         return occ, hit
 
-    occ_ref, hit_ref = run_both()  # XLA fallback
-    I._PALLAS_INTERPRET = True
-    try:
-        occ_p, hit_p = run_both()  # sorted Pallas path, interpret mode
-    finally:
-        I._PALLAS_INTERPRET = False
+    occ_p, hit_p = run_both()  # sorted BVH traversal
+    # reference: brute-force sweep of the same (BVH-ordered) rows
+    rays_s = (ro, sdir, tmin, jnp.where(smask, stmax, -1.0))
+    t_s, _, k_s = I._sweep_tris_xla(*rays_s, data)
+    occ_ref = np.asarray(k_s) == 0
+    t_b, p_b, k_b = I._sweep_tris_xla(
+        ro, bdir, tmin, jnp.where(bmask, btmax, -1.0), data
+    )
+    hit_ref = I.Hit(t=t_b, prim=p_b, kind=k_b, inst=jnp.zeros_like(p_b))
 
     np.testing.assert_array_equal(np.asarray(occ_p), np.asarray(occ_ref))
     hm_ref = np.asarray(hit_ref.hit_mask)

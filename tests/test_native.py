@@ -6,13 +6,14 @@ host hot paths native with the numpy code as the spec + fallback).
 """
 
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from pupiloptixlab_tpu import native
 from pupiloptixlab_tpu.accel.bvh import build_bvh, max_stack_depth
-from pupiloptixlab_tpu.accel.pallas_bvh import STACK_SIZE
+from pupiloptixlab_tpu.accel.traverse import STACK_SIZE
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
@@ -59,7 +60,8 @@ def test_native_bvh_invariants_and_traversal():
         native._lib = None
 
     import jax.numpy as jnp
-    from pupiloptixlab_tpu.accel.pallas_bvh import MAX_DISTANCE, bvh_closest
+    from pupiloptixlab_tpu.accel.traverse import MAX_DISTANCE, walk
+    from pupiloptixlab_tpu.render.vec import Vec3
 
     n = 1024
     ro = np.zeros((n, 3), np.float32)
@@ -69,18 +71,18 @@ def test_native_bvh_invariants_and_traversal():
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
     tmin = np.full(n, 1e-3, np.float32)
     tmax = np.full(n, MAX_DISTANCE, np.float32)
-    args = [jnp.asarray(a) for a in (ro[:, 0], ro[:, 1], ro[:, 2],
-                                     rd[:, 0], rd[:, 1], rd[:, 2], tmin, tmax)]
+    args = (Vec3(*(jnp.asarray(ro[:, k]) for k in range(3))),
+            Vec3(*(jnp.asarray(rd[:, k]) for k in range(3))),
+            jnp.asarray(tmin), jnp.asarray(tmax))
 
     hits = {}
     for name, b in (("native", bvh), ("numpy", ref)):
         packed = np.concatenate(
             [p0[b.order], (p1 - p0)[b.order], (p2 - p0)[b.order],
              np.zeros((t_pad, 3), np.float32)], 1)
-        t, i = bvh_closest(
+        t, i = walk(
             *args, jnp.asarray(packed), jnp.asarray(b.child),
-            jnp.asarray(b.axis), jnp.asarray(b.boxes),
-            rb=8, tcl=tcl, interpret=True,
+            jnp.asarray(b.boxes), tcl,
         )
         i = np.asarray(i)
         # map permuted winner index back to the original row id
@@ -127,7 +129,7 @@ def test_native_obj_matches_python(tmp_path):
 def test_native_obj_on_real_mesh():
     from pupiloptixlab_tpu.scene.shapes import load_obj
 
-    path = "/root/repo/data/meshes/icosphere.obj"
+    path = str(Path(__file__).resolve().parent.parent / "data" / "meshes" / "icosphere.obj")
     mesh_native = load_obj(path)
     os.environ["PUPIL_NO_NATIVE"] = "1"
     try:

@@ -9,6 +9,7 @@ RENDER level, and field-by-field where orders coincide.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -100,7 +101,7 @@ def test_refit_render_matches_host_render_with_bvh(tmp_path):
     The BVH keeps its topology (refit semantics) so arrays are NOT
     comparable to a host rebuild — images are."""
     w = World()
-    scene = load_scene("/root/repo/data/mesh_env.xml")
+    scene = load_scene(Path(__file__).resolve().parent.parent / "data" / "mesh_env.xml")
     scene.sensor.film.w, scene.sensor.film.h = 32, 32
     w.set_scene(scene)
     data0, config0 = w.get_scene_data()

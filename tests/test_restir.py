@@ -21,7 +21,7 @@ from pupiloptixlab_tpu.render.restir import N_PACK, Reservoir, restir_frame
 from pupiloptixlab_tpu.render.vec import Vec3
 from pupiloptixlab_tpu.scene import load_scene
 
-RESTIR_XML = "/root/reference/data/static/restir_test.xml"
+RESTIR_XML = "restir_test.xml"  # under PUPIL_REFERENCE_SCENES
 
 
 def test_reservoir_selection_frequencies():
@@ -52,8 +52,8 @@ def test_reservoir_selection_frequencies():
 
 
 @pytest.fixture(scope="module")
-def restir_scene():
-    scene = load_scene(RESTIR_XML)
+def restir_scene(reference_scene_dir):
+    scene = load_scene(reference_scene_dir / RESTIR_XML)
     scene.sensor.film.w, scene.sensor.film.h = 96, 54
     data, config = flatten_scene(scene)
     camera = camera_block_from_scene(scene)
@@ -101,14 +101,14 @@ def test_restir_di_matches_pt_direct(restir_scene):
 
 
 @pytest.mark.heavy
-def test_restir_di_matches_pt_direct_with_env():
+def test_restir_di_matches_pt_direct_with_env(reference_scene_dir):
     """Energy parity on a scene with BOTH area lights and an environment
     light — the case where round 2's estimator was 1.61x over-bright
     (env NEE divided by env_select_prob, and candidate u_sel clamped
     past the area CDF onto the last area emitter)."""
     from pupiloptixlab_tpu.scene.emitters import Emitter, EmitterType
 
-    scene = load_scene(RESTIR_XML)
+    scene = load_scene(reference_scene_dir / RESTIR_XML)
     scene.sensor.film.w, scene.sensor.film.h = 96, 54
     scene.emitters.append(
         Emitter(
@@ -200,7 +200,7 @@ def test_restir_gi_matches_pt_indirect(restir_scene):
 
 
 @pytest.mark.heavy
-def test_restir_gi_motion_warp_reuses_history():
+def test_restir_gi_motion_warp_reuses_history(reference_scene_dir):
     """With a moving camera, motion-warped temporal reuse must keep
     more reservoir history alive than identity reuse (which fails the
     similarity gate wherever the reprojection offset crosses edges)."""
@@ -211,7 +211,7 @@ def test_restir_gi_motion_warp_reuses_history():
     from pupiloptixlab_tpu.utils.camera import Camera, CameraDesc
     from pupiloptixlab_tpu.utils.math import Transform
 
-    scene = load_scene(RESTIR_XML)
+    scene = load_scene(reference_scene_dir / RESTIR_XML)
     scene.sensor.film.w, scene.sensor.film.h = 96, 54
     data, config = flatten_scene(scene)
     config = dataclasses.replace(config, max_depth=3, accumulate=False)

@@ -1,6 +1,6 @@
 """Frame value sanitizer (utils/debug.py + RenderConfig.debug_checks).
 
-The TPU analog of the reference's OptiX debug exception flags
+The analog of the reference's OptiX debug exception flags
 (optix/pipeline.cpp:19) and CUDA_SYNC_CHECK after passes
 (system/system.cpp:51): NaN/Inf/negative-value checks compiled into the
 frame program, surfaced as per-stage counts, raised host-side as a
@@ -8,6 +8,7 @@ structured SanitizerError.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,7 +49,9 @@ def test_clean_scene_reports_zero(reference_scene_dir):
 
 
 def test_default_config_has_no_sanitizer():
-    scene = load_scene("/root/reference/data/static/cornellbox.xml")
+    scene = load_scene(
+        Path(__file__).resolve().parent.parent / "data" / "oracle_mat.xml"
+    )
     scene.sensor.film.w = scene.sensor.film.h = 16
     data, config = flatten_scene(scene)
     bufs = _render(data, config, camera_block_from_scene(scene))

@@ -1,5 +1,7 @@
 """Multi-chip pixel sharding on the virtual 8-device CPU mesh."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +12,8 @@ from pupiloptixlab_tpu.flatten import camera_block_from_scene, flatten_scene
 from pupiloptixlab_tpu.parallel import make_mesh, render_frame_sharded, shard_scene
 from pupiloptixlab_tpu.render.integrator import render_frame
 from pupiloptixlab_tpu.scene import load_scene
+
+MESH_ENV = Path(__file__).resolve().parent.parent / "data" / "mesh_env.xml"
 
 
 @pytest.fixture(scope="module")
@@ -50,50 +54,36 @@ def test_sharded_matches_single_device(tiny_cornell):
     assert len(out_accum.sharding.device_set) == 8
 
 
-def test_ring_sweep_pallas_inner_matches_jnp():
-    """ROADMAP #8: the ring sweep's per-round inner loop dropped into
-    the Pallas chunk sweep (interpret mode on the CPU mesh) returns
-    bit-identical hits to the jnp inner."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from pupiloptixlab_tpu.flatten import camera_block_from_scene, flatten_scene
-    from pupiloptixlab_tpu.parallel.ring_sweep import (
-        ring_closest, shard_tris,
-    )
-    from pupiloptixlab_tpu.parallel.sharding import make_mesh
-    from pupiloptixlab_tpu.render.camera import generate_rays
-    from pupiloptixlab_tpu.scene import load_scene
-
-    scene = load_scene("/root/repo/data/mesh_env.xml")
-    scene.sensor.film.w, scene.sensor.film.h = 64, 32
+def test_sharded_bvh_scene_matches_single_device():
+    """Pixel sharding of a BVH scene (per-ray traversal + ray sort under
+    GSPMD) reproduces the single-device frame."""
+    scene = load_scene(MESH_ENV)
+    scene.sensor.film.w, scene.sensor.film.h = 32, 16
     data, config = flatten_scene(scene)
     camera = camera_block_from_scene(scene)
     n = config.width * config.height
-    jx = jnp.zeros(n)
-    ro, rd = generate_rays(camera, config.width, config.height, jx, jx)
-    tmin = jnp.full(n, 1e-3, jnp.float32)
-    tmax = jnp.full(n, 1e16, jnp.float32)
+    ref, _ = render_frame(data, camera, jnp.uint32(3), jnp.int32(0),
+                          jnp.zeros((n, 3), jnp.float32), config)
+    mesh = make_mesh(8)
+    out, _ = render_frame_sharded(
+        mesh, shard_scene(data, mesh), camera, seed=3, sample_cnt=0,
+        accum=jnp.zeros((n, 3), jnp.float32), config=config,
+    )
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                               rtol=1e-4, atol=1e-5)
+    assert len(out.sharding.device_set) == 8
+    # the next progressive frame reuses the traced and compiled step
+    from pupiloptixlab_tpu.parallel.sharding import _sharded_frame
 
-    mesh = make_mesh(8, axis="shards")
-    tris_sh, shard_rows = shard_tris(data.tris.packed, mesh)
-    ro_flat = jnp.stack([ro.x, ro.y, ro.z])
-    rd_flat = jnp.stack([rd.x, rd.y, rd.z])
-    t_j, p_j = ring_closest(
-        mesh, ro_flat, rd_flat, tmin, tmax, tris_sh, shard_rows
-    )
-    t_p, p_p = ring_closest(
-        mesh, ro_flat, rd_flat, tmin, tmax, tris_sh, shard_rows,
-        inner="pallas", interpret=True,
-    )
-    p_p, p_j = np.asarray(p_p), np.asarray(p_j)
-    # same hit mask; indices may differ only on fp near-ties (the Pallas
-    # MT uses a Newton-refined approximate reciprocal)
-    np.testing.assert_array_equal(p_p >= 0, p_j >= 0)
-    assert (p_p == p_j).mean() > 0.999
-    np.testing.assert_allclose(
-        np.asarray(t_p), np.asarray(t_j), rtol=1e-4, atol=1e-4
-    )
+    step = _sharded_frame(mesh, config)
+    out = render_frame_sharded(mesh, sdata := shard_scene(data, mesh), camera,
+                               seed=4, sample_cnt=1, accum=out,
+                               config=config)[0]
+    compiled = step._cache_size()
+    out = render_frame_sharded(mesh, sdata, camera, seed=5, sample_cnt=2,
+                               accum=out, config=config)[0]
+    assert step._cache_size() == compiled
+    assert np.isfinite(np.asarray(out)).all()
 
 
 def test_ring_sharded_sweep_matches_single_device():
@@ -112,7 +102,7 @@ def test_ring_sharded_sweep_matches_single_device():
     from pupiloptixlab_tpu.render.camera import generate_rays
     from pupiloptixlab_tpu.scene import load_scene
 
-    scene = load_scene("/root/repo/data/mesh_env.xml")
+    scene = load_scene(MESH_ENV)
     scene.sensor.film.w, scene.sensor.film.h = 128, 64
     data, config = flatten_scene(scene)
     camera = camera_block_from_scene(scene)
@@ -147,10 +137,9 @@ def test_ring_sharded_sweep_matches_single_device():
 
 
 def test_ring_bvh_matches_single_device():
-    """VERDICT-r3 item 3: the ring-sharded mode with a PER-SHARD BVH
-    (rotated together with its shard by ppermute) matches the
-    single-device traversal; per-chip residency is 1/8 of rows + its
-    own tree tables."""
+    """The ring-sharded mode with a PER-SHARD BVH (rotated together with
+    its shard by ppermute) matches the single-device traversal;
+    per-device residency is 1/8 of rows + its own tree tables."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -162,7 +151,7 @@ def test_ring_bvh_matches_single_device():
     from pupiloptixlab_tpu.render.camera import generate_rays
     from pupiloptixlab_tpu.scene import load_scene
 
-    scene = load_scene("/root/repo/data/mesh_env.xml")
+    scene = load_scene(MESH_ENV)
     scene.sensor.film.w, scene.sensor.film.h = 64, 32
     data, config = flatten_scene(scene)
     camera = camera_block_from_scene(scene)
@@ -181,7 +170,7 @@ def test_ring_bvh_matches_single_device():
     ro_flat = jnp.stack([ro.x, ro.y, ro.z])
     rd_flat = jnp.stack([rd.x, rd.y, rd.z])
     t_ring, p_ring = ring_closest_bvh(
-        mesh, ro_flat, rd_flat, tmin, tmax, ring, interpret=True
+        mesh, ro_flat, rd_flat, tmin, tmax, ring
     )
 
     from pupiloptixlab_tpu.accel.intersect import intersect_closest
@@ -197,68 +186,3 @@ def test_ring_bvh_matches_single_device():
     # the winning GLOBAL rows agree on ~all mutual hits (fp near-ties
     # between equal-t triangles may legitimately differ)
     assert (np.asarray(p_ring)[both] == np.asarray(hit.prim)[both]).mean() > 0.99
-
-
-def test_balanced_tile_perm_equalizes_cost():
-    """The serpentine deal lands per-chip cost sums within 2% of the
-    mean on a skewed synthetic distribution."""
-    import numpy as np
-
-    from pupiloptixlab_tpu.parallel.balance import balanced_tile_perm
-
-    rng = np.random.default_rng(0)
-    costs = (rng.pareto(2.0, size=2048) * 100 + 5).astype(np.int64)
-    perm = balanced_tile_perm(costs, 8)
-    assert sorted(perm) == list(range(2048))
-    sums = costs[perm].reshape(8, -1).sum(axis=1)
-    assert sums.max() / sums.mean() < 1.02, sums
-
-
-@pytest.mark.heavy
-def test_balanced_render_matches_unbalanced():
-    """Tile-permuted rendering (the load-balanced multi-chip path) is
-    bit-identical to the plain sharded path: RNG is keyed by pixel id
-    and the outputs un-permute inside the jit."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from pupiloptixlab_tpu.flatten import camera_block_from_scene, flatten_scene
-    from pupiloptixlab_tpu.parallel import (
-        make_mesh, render_frame_sharded, shard_scene,
-    )
-    from pupiloptixlab_tpu.parallel.balance import (
-        balanced_tile_perm, render_frame_balanced, tile_costs,
-    )
-    from pupiloptixlab_tpu.scene import load_scene
-
-    scene = load_scene("/root/repo/data/mesh_env.xml")
-    scene.sensor.film.w, scene.sensor.film.h = 128, 64  # 8 tiles
-    data, config = flatten_scene(scene)
-    assert config.bvh_nodes > 0
-    camera = camera_block_from_scene(scene)
-    n = config.width * config.height
-
-    mesh = make_mesh(8)
-    data_sh = shard_scene(data, mesh)
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    pix = NamedSharding(mesh, P("pixels"))
-    acc0 = jax.device_put(jnp.zeros((n, 3), jnp.float32), pix)
-    ref_accum, ref_bufs = render_frame_sharded(
-        mesh, data_sh, camera, 7, 0, acc0, config
-    )
-
-    costs = tile_costs(data, camera, config)
-    assert costs.shape == (n // 1024,) and (costs > 0).any()
-    perm = balanced_tile_perm(costs, 8)
-    acc1 = jax.device_put(jnp.zeros((n, 3), jnp.float32), pix)
-    bal_accum, bal_bufs = render_frame_balanced(
-        mesh, data_sh, camera, 7, 0, acc1, config, perm
-    )
-    np.testing.assert_array_equal(
-        np.asarray(bal_accum), np.asarray(ref_accum)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(bal_bufs["normal"]), np.asarray(ref_bufs["normal"])
-    )

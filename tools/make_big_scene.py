@@ -1,6 +1,6 @@
-"""Generate a large displaced-grid OBJ + scene XML for streaming tests.
+"""Generate a large displaced-grid OBJ + scene XML (seeded, deterministic).
 
-    python tools/make_big_scene.py /tmp/big 450   # -> ~405k triangles
+    python tools/make_big_scene.py data/generated/big_env 450   # ~405k tris
 """
 
 from __future__ import annotations
@@ -82,6 +82,9 @@ def make(out_dir: str, grid: int = 450, w: int = 320, h: int = 180) -> str:
 
 
 if __name__ == "__main__":
-    out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/big"
+    out = sys.argv[1] if len(sys.argv) > 1 else str(
+        Path(__file__).resolve().parent.parent / "data" / "generated"
+        / "big_env"
+    )
     grid = int(sys.argv[2]) if len(sys.argv) > 2 else 450
     make(out, grid)

@@ -869,10 +869,7 @@ def render_oracle(scene, size, spp, max_depth, seed=0, batch=16,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument(
-        "scene", nargs="?",
-        default="/root/reference/data/static/cornellbox.xml",
-    )
+    ap.add_argument("scene")
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--spp", type=int, default=8192)
     ap.add_argument("--max-depth", type=int, default=4)
